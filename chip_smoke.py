@@ -8,7 +8,12 @@ Phases, each of which fails the run if it fails:
 
 1. Header: the card's name and power limit (nvidia-smi), then the
    kernels' build from the repository's sources (nvcc for the CUDA C++
-   flash attention; Triton compiles the GroupNorm kernel at first use).
+   flash attention and decode attention, one process each, in parallel;
+   Triton compiles the GroupNorm, RMSNorm and SwiGLU kernels at first
+   use).
+
+Diffusion path (slice 1):
+
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes the served path gives it (recorded from one full-width UNet
    forward and one discriminator forward at batch 8), with its stated
@@ -24,7 +29,31 @@ Phases, each of which fails the run if it fails:
    on the CPU (plain versions) must agree. Then ``torch.profiler`` traces
    one tier-0 stage call at batches 1 and 8: device busy time, the idle
    share of the wall, device time by kernel.
-4. One JSON line listing every ported kernel, then, last, the result
+
+Dense LM path (slice 2), after the diffusion path's tensors are freed:
+
+4. Yi-9B at full width but 2 layers in float32: the prefill logits and
+   the first decode logits through the kernels against the same forward
+   with every ``ops`` function swapped for its plain version (relative
+   1e-4).
+5. Random Yi-9B at full width and depth in bfloat16 (seeded
+   ``torch.Generator``): one prefill of 4 x 512 tokens and one decode
+   step through the kernels against the plain versions (relative 5e-2
+   on the last-position logits; the share of greedy tokens that agree
+   is printed), with every kernel call recorded.
+6. Each LM kernel against its plain version at the recorded shapes
+   (held in bfloat16 and float32, timed in bfloat16, the path's dtype),
+   plus decode attention at one layer of decode_32k, with kernel,
+   plain, library and bound times. Times are device times of calls
+   queued back to back (``cuda_ms``).
+7. The slice: ``serve_prefill`` of 4 prompts of 512 tokens into a cache
+   of 1024, then 32 greedy ``serve_decode`` steps, with every launch
+   counter zeroed just before and read just after; the counts must
+   equal the path's. Prefill time, per-token decode latency (median of
+   CUDA events) against the decode step's bytes bound, then
+   ``torch.profiler`` traces of one decode step and one prefill.
+
+8. One JSON line listing every ported kernel, then, last, the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the
@@ -33,7 +62,9 @@ repository's ``src/repro_torch`` beside it. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -60,6 +91,16 @@ DEV = "cuda"
 # kernel calls per forward on the full-width path
 PATH_GN = {"unet": 41, "disc": 22}      # 35 of the UNet's with SiLU
 PATH_FA = {"unet": 6, "disc": 0}
+# the LM slice: Yi-9B, 4 prompts of 512 tokens, 32 greedy decode steps
+LM_ARCH = "yi-9b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 512, 32
+EW_TOL = {"float32": dict(atol=3e-5, rtol=3e-5),
+          "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+LM_FP32_REL = 1e-4      # max |diff| / max |logit|, 2 layers, float32
+LM_BF16_REL = 5e-2      # the same at full depth in bfloat16
+# decode_32k's outputs are means over 32769 values (typically ~0.01):
+# its bf16 atol is 2e-2 of the largest |output|, not 2e-2 absolute
+DECODE_32K_REL_ATOL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -74,23 +115,83 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-def cuda_ms(torch, fn, iters: int = 20) -> float:
-    """Median ms of one call, by CUDA events around each call, with the
-    L2 cache (50 MB) flushed before each so inputs come from HBM."""
+_CYCLES_PER_MS = []
+
+
+def _spin(torch, ms: float) -> None:
+    """Keep the card busy for about ``ms`` (``torch.cuda._sleep``, its
+    clock rate measured at the first call)."""
+    if not _CYCLES_PER_MS:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(1 << 20)
+        e0.record()
+        torch.cuda._sleep(1 << 24)
+        e1.record()
+        e1.synchronize()
+        _CYCLES_PER_MS.append((1 << 24) / e0.elapsed_time(e1))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def cuda_ms(torch, fn, iters: int = 20, reps: int = 3) -> float:
+    """Device ms of one call. ``iters`` calls, each after a 64 MB write
+    that evicts the 50 MB L2 so inputs come from HBM, are queued behind
+    a spin kernel long enough for the host to queue them all, so they
+    run back to back and the host's launch cost is off the clock; one
+    pair of CUDA events spans them. The same run of L2 writes alone is
+    subtracted, the difference divided by ``iters``: the median of
+    ``reps`` such runs. Where the host cannot queue the calls ahead of
+    the card (``fn`` waits for it, as the caching allocator does when
+    it must free memory), each call is timed alone between two events
+    after its flush, and the median taken; that is logged."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        flush.zero_()
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+
+    def run(body):
+        for spin_ms in (2 * host_ms + 1, 8 * host_ms + 4):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            _spin(torch, spin_ms)
+            e0.record()
+            for _ in range(iters):
+                flush.zero_()
+                body()
+            e1.record()
+            queued = not e0.query()      # the card still spinning
+            e1.synchronize()
+            if queued:
+                return e0.elapsed_time(e1)
+        return None
+
+    per = []
+    for _ in range(reps):
+        both, alone = run(fn), run(lambda: None)
+        if both is None or alone is None:
+            break
+        per.append(both - alone)
+    else:
+        per.sort()
+        return per[len(per) // 2] / iters
     times = []
     for _ in range(iters):
         flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
         fn()
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     times.sort()
+    log(f"cuda_ms: the host could not queue {iters} calls ahead of the "
+        f"card ({host_ms / iters:.3f} ms of host time a call); timed call "
+        f"by call: median {times[len(times) // 2]:.4f} ms")
     return times[len(times) // 2]
 
 
@@ -116,10 +217,11 @@ def header_and_build(torch):
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import fused_groupnorm as tgn
     t0 = time.perf_counter()
-    (lib,) = build.build(["flash_attention"])
+    libs = build.build(["flash_attention", "decode_attention"])
     t_nvcc = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = [f"{lib.name.split('-')[0]}: {ln.strip()}" for lib in libs
+             for ln in lib.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
     for ln in ptxas:
         log(f"ptxas: {ln}")
     t0 = time.perf_counter()
@@ -128,9 +230,10 @@ def header_and_build(torch):
                         torch.zeros(32, device=DEV), groups=8)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    log(f"build: nvcc flash_attention {t_nvcc:.3f} s; triton first "
-        f"fused_groupnorm compile {t_triton:.3f} s "
-        f"(specialisations so far {len(tgn.fused_groupnorm.specializations)})")
+    log(f"build: nvcc flash_attention + decode_attention in parallel "
+        f"{t_nvcc:.3f} s; triton first fused_groupnorm compile "
+        f"{t_triton:.3f} s (specialisations so far "
+        f"{len(tgn.fused_groupnorm.specializations)})")
     return {"nvcc_s": t_nvcc, "triton_first_s": t_triton, "ptxas": ptxas}
 
 
@@ -465,7 +568,8 @@ def serve_slice(torch, np, full_cfg, dcfg):
     gn_u, gn_d, fa_u = PATH_GN["unet"], PATH_GN["disc"], PATH_FA["unet"]
     steps = tier0.num_steps + tier1.num_steps
     want = {"fused_groupnorm": len(SERVE_SIZES) * (steps * gn_u + gn_d),
-            "flash_attention": len(SERVE_SIZES) * steps * fa_u}
+            "flash_attention": len(SERVE_SIZES) * steps * fa_u,
+            "decode_attention": 0, "fused_rmsnorm": 0, "swiglu": 0}
     log(f"launches over {len(SERVE_SIZES)} serves: {counts} (expected "
         f"{want}, total {sum(want.values())}); serve wall {serve_s:.3f} s")
     if counts != want:
@@ -474,50 +578,520 @@ def serve_slice(torch, np, full_cfg, dcfg):
                     "serve_wall_s": serve_s}, casc
 
 
-def profile_stage(torch, casc, batches=(1, 8)):
-    """torch.profiler over one tier-0 stage call (one UNet forward and
-    the DDIM step) per batch: host wall, device busy time (union of the
-    card's kernel intervals), the idle share of the wall, and device time
-    by kernel name."""
+def trace_call(torch, fn):
+    """torch.profiler over one call of ``fn`` (warmed up first): host
+    wall, device busy time (union of the card's kernel intervals), the
+    idle share of the wall, and device time and launches by kernel name,
+    largest first."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for s0, s1 in spans:
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "idle_share": 1.0 - busy / wall_us,
+            "device_launches": len(kernels),
+            "by_kernel": [{"name": n[:90], "count": c, "us": t}
+                          for n, (c, t) in ranked]}
+
+
+def log_trace(what: str, row) -> None:
+    log(f"profile {what}: wall {row['wall_us']:.0f} us (profiled), device "
+        f"busy {row['device_busy_us']:.0f} us, idle share "
+        f"{row['idle_share']:.3f}, {row['device_launches']} device launches")
+    for t in row["by_kernel"][:12]:
+        log(f"  {t['us']:9.1f} us x{t['count']:4d}  {t['name']}")
+
+
+def profile_stage(torch, casc, batches=(1, 8)):
+    """``trace_call`` over one tier-0 stage call (one UNet forward and
+    the DDIM step) per batch."""
     cfg, fn, params = casc.stage_fns()[0]
     out = []
     for b in batches:
         toks = torch.zeros((b, PROMPT_LEN), dtype=torch.int64, device=DEV)
-        fn(params, toks)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn(params, toks)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels)
-        busy, end = 0.0, float("-inf")
-        for s0, s1 in spans:
-            if s1 > end:
-                busy += s1 - max(s0, end)
-                end = s1
-        by_name = {}
-        for e in kernels:
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-        row = {"batch": b, "wall_us": wall_us, "device_busy_us": busy,
-               "idle_share": 1.0 - busy / wall_us,
-               "device_launches": len(kernels),
-               "top": [{"name": n[:90], "count": c, "us": t}
-                       for n, (c, t) in top]}
+        row = {"batch": b, **trace_call(torch, lambda: fn(params, toks))}
         out.append(row)
-        log(f"profile tier-0 stage b={b}: wall {wall_us:.0f} us (profiled),"
-            f" device busy {busy:.0f} us, idle share "
-            f"{row['idle_share']:.3f}, {len(kernels)} device launches")
-        for t in row["top"]:
-            log(f"  {t['us']:9.1f} us x{t['count']:4d}  {t['name']}")
+        log_trace(f"tier-0 stage b={b}", row)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dense LM path (slice 2)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_ops():
+    """Every ``ops`` function swapped for its plain version
+    (``ops.PLAIN``), on whatever device the tensors are."""
+    from repro_torch.kernels import ops
+    saved = {name: getattr(ops, name) for name in ops.PLAIN}
+    for name, plain in ops.PLAIN.items():
+        setattr(ops, name, plain)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+@contextlib.contextmanager
+def recorded_calls(calls):
+    """Appends (kind, shapes, dtype, extra) of every LM kernel call to
+    ``calls`` and passes the call on to the kernel."""
+    from repro_torch.kernels import ops
+    saved = {name: getattr(ops, name) for name in ops.PLAIN}
+
+    def dt(t):
+        return str(t.dtype).split(".")[-1]
+
+    def rms(x, scale, *, residual=None, eps=1e-5):
+        calls.append(("rmsnorm_res" if residual is not None else "rmsnorm",
+                      tuple(x.shape), dt(x), None))
+        return saved["fused_rmsnorm"](x, scale, residual=residual, eps=eps)
+
+    def swiglu(g, u):
+        calls.append(("swiglu", tuple(g.shape), dt(g), None))
+        return saved["swiglu"](g, u)
+
+    def flash(q, k, v, *, causal=True, kv_len=None):
+        calls.append(("flash", (tuple(q.shape), tuple(k.shape)), dt(q),
+                      causal))
+        return saved["flash_attention"](q, k, v, causal=causal,
+                                        kv_len=kv_len)
+
+    def decode(q, k, v, valid_len):
+        calls.append(("decode", (tuple(q.shape), tuple(k.shape)), dt(q),
+                      tuple(valid_len.tolist())))
+        return saved["decode_attention"](q, k, v, valid_len)
+    ops.fused_rmsnorm, ops.swiglu = rms, swiglu
+    ops.flash_attention, ops.decode_attention = flash, decode
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def prefill_and_first_decode(torch, cfg, params, prompts, next_tok=None):
+    """(prefill logits, first decode logits, the decoded token, the
+    decode step's greedy token) on a fresh cache; ``next_tok`` fixes the
+    decoded token (else the prefill's greedy one)."""
+    from repro_torch.launch.steps import serve_decode, serve_prefill
+    from repro_torch.models.kvcache import init_cache
+    B, S = prompts.shape
+    cache = init_cache(cfg, B, 2 * S, DEV)
+    lp, cache = serve_prefill(params, cfg, cache, prompts)
+    tok = lp.argmax(-1, keepdim=True) if next_tok is None else next_tok
+    ld, cache = serve_decode(params, cfg, cache, tok, S)
+    return lp.float(), ld.float(), tok, ld.argmax(-1)
+
+
+def rel_diff(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def lm_logits_check(torch, cfg, params, prompts, rel_tol, what):
+    """The kernel path's prefill and first decode logits against the same
+    forward through the plain versions; returns the kernel path's calls
+    and the numbers."""
+    calls = []
+    with recorded_calls(calls):
+        kp, kd, tok, ktok = prefill_and_first_decode(torch, cfg, params,
+                                                     prompts)
+    with plain_ops():
+        pp, pd, _, ptok = prefill_and_first_decode(torch, cfg, params,
+                                                   prompts, tok)
+    torch.cuda.synchronize()
+    for name, t in (("prefill", kp), ("decode", kd)):
+        if not torch.isfinite(t).all() or t.shape != (prompts.shape[0],
+                                                      cfg.vocab_size):
+            fail(f"{what}: {name} logits not finite of shape "
+                 f"{(prompts.shape[0], cfg.vocab_size)}")
+    err_p, err_d = rel_diff(kp, pp), rel_diff(kd, pd)
+    agree = torch.cat([tok[:, 0] == pp.argmax(-1), ktok == ptok]).float()
+    log(f"{what}: kernels vs plain versions, max|diff|/max|logit| prefill "
+        f"{err_p:.3e}, first decode {err_d:.3e} (tolerance {rel_tol}); "
+        f"greedy tokens agree {agree.mean().item():.3f} of {agree.numel()}; "
+        f"max|logit| {pp.abs().max().item():.3f}")
+    if max(err_p, err_d) > rel_tol:
+        fail(f"{what}: logits differ from the plain path by "
+             f"{max(err_p, err_d):.3e} > {rel_tol}")
+    return calls, {"prefill_rel_diff": err_p, "decode_rel_diff": err_d,
+                   "greedy_agree": agree.mean().item()}
+
+
+def lm_path_calls(calls, layers):
+    """Check the recorded calls of one prefill and one decode forward
+    against the path's: per forward, RMSNorm L + 1, its residual variant
+    L, SwiGLU L, and L attention calls (flash in prefill, decode
+    attention at S = 1)."""
+    n = dict(Counter(kind for kind, *_ in calls))
+    want = {"rmsnorm": 2 * (layers + 1), "rmsnorm_res": 2 * layers,
+            "swiglu": 2 * layers, "flash": layers, "decode": layers}
+    log(f"LM path calls in one prefill + one decode step: {n} "
+        f"(expected {want})")
+    if n != want:
+        fail("the LM path's kernel calls per forward changed")
+
+
+def _time_rows(torch, kernel, plain, library, nbytes, flops, dtype):
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    return {"ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
+            "library_ms": None if library is None else cuda_ms(torch,
+                                                               library),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _sdpa(torch, q, k, v, causal):
+    """One ``scaled_dot_product_attention`` call on (B, S, H, D) layouts
+    with GQA, through the flash or memory-efficient backends only (the
+    math backend would repeat K/V for every query head); None when
+    neither takes the shapes."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+    def call():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(*args, is_causal=causal,
+                                                  enable_gqa=True)
+    try:
+        call()
+    except RuntimeError as err:
+        log(f"library attention: no flash/efficient SDPA backend for q "
+            f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype}: "
+            f"{str(err).splitlines()[0][:120]}")
+        return None
+    return call
+
+
+def _decode_inputs(torch, g, qs, ks, valid, dt):
+    """Decode-attention inputs and the bytes and flops the call needs:
+    q and the output once, the live rows of K and V once."""
+    q = torch.randn(qs, generator=g, device=DEV).to(dt)
+    k = torch.randn(ks, generator=g, device=DEV).to(dt)
+    v = torch.randn(ks, generator=g, device=DEV).to(dt)
+    vl = torch.tensor(valid, dtype=torch.int32, device=DEV)
+    B, H, D = qs
+    el = q.element_size()
+    live = sum(valid)
+    nbytes = 2 * q.numel() * el + 2 * live * ks[2] * D * el + 4 * B
+    return q, k, v, vl, nbytes, 4.0 * live * H * D
+
+
+def check_lm_kernels(torch, calls):
+    """Each LM kernel against its plain version at the path's shapes, in
+    bfloat16 (the path's dtype; timed) and float32 (held only); decode
+    attention also at one layer of decode_32k, in bfloat16 at a
+    tolerance set from its outputs' scale. Returns the kernel-line
+    entries (times summed over one prefill forward and one decode step,
+    bf16) and the per-shape rows."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import fused_rmsnorm as trms
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swiglu as tsw
+    from repro_torch.launch.steps import cache_len
+    F = torch.nn.functional
+    g = torch.Generator(device=DEV).manual_seed(13)
+    mult = Counter((kind, shape, extra) for kind, shape, _, extra in calls)
+    rows = {"fused_rmsnorm": [], "swiglu": [], "decode_attention": [],
+            "flash_attention": []}
+    worst = dict.fromkeys(rows, 0.0)
+
+    def hold(name, got, want, dtype, tol=None):
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in pairs)
+        tol = tol or (FLASH_TOL if "attention" in name else EW_TOL)[dtype]
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, **tol)
+        if dtype == "float32":
+            worst[name] = max(worst[name], err)
+        return err, tol
+
+    def report(name, row, what):
+        lib = "-" if row["library_ms"] is None \
+            else f"{row['library_ms']:.4f}"
+        log(f"{name} {what}: max|err| {row['max_abs_err']:.3e}; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{lib} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    def case(kind, shape, extra, dt, timed):
+        """(kernel name, kernel call, plain call, library call or None,
+        bytes and flops of the function) on fresh inputs; the attention
+        library calls are probed only for a row that is ``timed``."""
+        el = torch.tensor([], dtype=dt).element_size()
+        if kind in ("rmsnorm", "rmsnorm_res"):
+            D = shape[-1]
+            x = (torch.randn(shape, generator=g, device=DEV) * 3).to(dt)
+            r = torch.randn(shape, generator=g, device=DEV).to(dt) \
+                if kind == "rmsnorm_res" else None
+            s = torch.rand(D, generator=g, device=DEV) + 0.5
+            sl = s.to(dt)
+            return ("fused_rmsnorm",
+                    lambda: trms.fused_rmsnorm(x, s, residual=r),
+                    lambda: ref.rmsnorm_ref(x, s, residual=r),
+                    lambda: F.rms_norm(x if r is None else x + r, (D,), sl,
+                                       1e-5),
+                    (2 if r is None else 4) * x.numel() * el + 4 * D,
+                    (4 if r is None else 5) * x.numel())
+        if kind == "swiglu":
+            gate = (torch.randn(shape, generator=g, device=DEV) * 4).to(dt)
+            up = torch.randn(shape, generator=g, device=DEV).to(dt)
+            return ("swiglu", lambda: tsw.swiglu(gate, up),
+                    lambda: ref.swiglu_ref(gate, up),
+                    lambda: F.silu(gate) * up,
+                    3 * gate.numel() * el, 5 * gate.numel())
+        if kind == "flash":
+            (qs, ks), causal = shape, extra
+            q = torch.randn(qs, generator=g, device=DEV).to(dt)
+            k = torch.randn(ks, generator=g, device=DEV).to(dt)
+            v = torch.randn(ks, generator=g, device=DEV).to(dt)
+            B, Sq, H, D = qs
+            return ("flash_attention",
+                    lambda: tflash.flash_attention(q, k, v, causal=causal),
+                    lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                    _sdpa(torch, q, k, v, causal) if timed else None,
+                    (2 * q.numel() + 2 * k.numel()) * el,
+                    4.0 * B * H * Sq * (Sq + 1) / 2 * D)
+        (qs, ks), valid = shape, extra
+        q, k, v, vl, nbytes, flops = _decode_inputs(torch, g, qs, ks, valid,
+                                                    dt)
+        top = max(valid)
+        return ("decode_attention",
+                lambda: tdec.decode_attention(q, k, v, vl),
+                lambda: ref.decode_attention_ref(q, k, v, vl),
+                _sdpa(torch, q[:, None], k[:, :top], v[:, :top], False)
+                if timed and len(set(valid)) == 1 else None, nbytes, flops)
+
+    # bfloat16, the path's dtype, held and timed; float32 held only
+    for (kind, shape, extra), n in sorted(mult.items(), key=str):
+        for dtype in ("bfloat16", "float32"):
+            name, kernel, plain, library, nbytes, flops = case(
+                kind, shape, extra, getattr(torch, dtype),
+                dtype == "bfloat16")
+            err, tol = hold(name, kernel(), plain(), dtype)
+            what = f"{kind} {shape} {extra or ''} {dtype} x{n} (tol {tol})"
+            if dtype == "float32":
+                log(f"{name} {what}: max|err| {err:.3e}")
+                continue
+            row = {"kind": kind, "shape": shape, "extra": extra,
+                   "dtype": dtype, "per_path": n, "max_abs_err": err,
+                   **_time_rows(torch, kernel, plain, library, nbytes,
+                                flops, dtype)}
+            rows[name].append(row)
+            report(name, row, what)
+    # one layer of decode_32k: B 128, 32768 tokens of history plus the
+    # one being written, in a cache of cache_len(decode_32k) rows
+    shp = SHAPES["decode_32k"]
+    B, T, valid = shp.global_batch, cache_len(shp), shp.seq_len + 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    q, k, v, vl, nbytes, flops = _decode_inputs(
+        torch, g, (B, 32, 128), (B, T, 4, 128), (valid,) * B,
+        torch.bfloat16)
+    want = ref.decode_attention_ref(q, k, v, vl)
+    tol = dict(atol=DECODE_32K_REL_ATOL * want.abs().max().item(),
+               rtol=FLASH_TOL["bfloat16"]["rtol"])
+    err, tol = hold("decode_attention", tdec.decode_attention(q, k, v, vl),
+                    want, "bfloat16", tol)
+    del want
+    t = _time_rows(torch, lambda: tdec.decode_attention(q, k, v, vl),
+                   lambda: ref.decode_attention_ref(q, k, v, vl),
+                   _sdpa(torch, q[:, None], k[:, :valid], v[:, :valid],
+                         False), nbytes, flops, "bfloat16")
+    row = {"kind": "decode_32k one layer",
+           "shape": ((B, 32, 128), (B, T, 4, 128)), "extra": valid,
+           "dtype": "bfloat16", "per_path": 0, "max_abs_err": err,
+           "tol": tol, "gb_per_s": nbytes / t["ms"] / 1e6, **t}
+    rows["decode_attention"].append(row)
+    report("decode_attention", row, f"decode_32k one layer q {(B, 32, 128)}"
+           f" k/v {(B, T, 4, 128)} valid {valid} bfloat16 (tol {tol}, "
+           f"{row['gb_per_s']:.0f} GB/s)")
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    source = {"decode_attention": (
+                  "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
+                  "src/repro/kernels/decode_attention.py:62"),
+              "fused_rmsnorm": ("triton",
+                                "src/repro_torch/kernels/fused_rmsnorm.py",
+                                "src/repro/kernels/fused_rmsnorm.py:30"),
+              "swiglu": ("triton", "src/repro_torch/kernels/swiglu.py",
+                         "src/repro/kernels/swiglu.py:17")}
+    entries = {}
+    for name, (route, src, replaces) in source.items():
+        path = [r for r in rows[name] if r["dtype"] == "bfloat16"
+                and r["per_path"]]
+        tot = {key: sum(r["per_path"] * (r[key] or 0.0) for r in path)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        if any(r["library_ms"] is None for r in path):
+            tot["library_ms"] = None
+        t_bytes = sum(r["per_path"] * r["bound_ms"] for r in path
+                      if r["bound_by"] == "bytes")
+        entries[name] = {
+            "name": name, "route": route, "source": src,
+            "replaces": replaces, "max_abs_err": worst[name], **tot,
+            "bound_by": "bytes" if 2 * t_bytes >= tot["bound_ms"]
+            else "operations",
+            "per": f"one {LM_ARCH} prefill ({LM_BATCH}x{LM_PROMPT}) and "
+                   f"one decode step, bfloat16: "
+                   f"{sum(r['per_path'] for r in path)} launches"}
+    return entries, rows
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named(v, f"{prefix}{i}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def serve_lm(torch, cfg, params):
+    """The slice: one prefill of LM_BATCH prompts of LM_PROMPT tokens and
+    LM_STEPS greedy decode steps, launch counters zeroed just before and
+    read just after; then a profiled decode step."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import cache_len, serve_decode, serve_prefill
+    from repro_torch.models.kvcache import init_cache
+    L = cfg.num_layers
+    T = cache_len(ShapeConfig("smoke_decode", "decode",
+                              LM_PROMPT + LM_STEPS, LM_BATCH))
+    g = torch.Generator(device=DEV).manual_seed(50)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=DEV)
+    cache = init_cache(cfg, LM_BATCH, T, DEV)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(LM_STEPS)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = serve_prefill(params, cfg, cache, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tokens = [logits.argmax(-1, keepdim=True)]
+    finite = [torch.isfinite(logits).all()]
+    t0 = time.perf_counter()
+    for step, (e0, e1) in enumerate(events):
+        e0.record()
+        logits, cache = serve_decode(params, cfg, cache, tokens[-1],
+                                     LM_PROMPT + step)
+        e1.record()
+        tokens.append(logits.argmax(-1, keepdim=True))
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {"flash_attention": L, "fused_groupnorm": 0,
+            "decode_attention": L * LM_STEPS,
+            "fused_rmsnorm": (2 * L + 1) * (LM_STEPS + 1),
+            "swiglu": L * (LM_STEPS + 1)}
+    step_ms = sorted(e0.elapsed_time(e1) for e0, e1 in events)
+    median = step_ms[len(step_ms) // 2]
+    gen = torch.cat(tokens, dim=1)
+    log(f"LM slice {LM_ARCH} bfloat16: prefill {LM_BATCH}x{LM_PROMPT} "
+        f"{prefill_s * 1e3:.2f} ms; {LM_STEPS} decode steps: per-token "
+        f"latency median {median:.3f} ms (min {step_ms[0]:.3f}, max "
+        f"{step_ms[-1]:.3f}; CUDA events), host wall "
+        f"{decode_s * 1e3 / LM_STEPS:.3f} ms a step")
+    log(f"launches over the LM slice: {counts} (expected {want})")
+    if counts != want:
+        fail(f"LM launch counts {counts} != expected {want}")
+    if not bool(torch.stack(finite).all()) or logits.shape != (
+            LM_BATCH, cfg.vocab_size):
+        fail("LM slice: logits not finite or of the wrong shape")
+    if not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        fail("LM slice: generated tokens outside the vocabulary")
+    # the decode step's bytes bound: every weight but the embedding table
+    # (the step gathers 4 of its rows), and the live K/V rows, once
+    w_bytes = sum(t.numel() * t.element_size() for name, t in _named(params)
+                  if name != "embed/embedding")
+    kv_bytes = 2 * L * LM_BATCH * (LM_PROMPT + LM_STEPS // 2) \
+        * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    step_bound = (w_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
+    log(f"decode step bound: {w_bytes / 1e9:.2f} GB of weights + "
+        f"{kv_bytes / 1e9:.3f} GB of live K/V (mean step) at "
+        f"{PEAK_BYTES_S / 1e12:.2f} TB/s = {step_bound:.3f} ms; the median "
+        f"step takes {median / step_bound:.2f}x the bound")
+    prof = trace_call(torch, lambda: serve_decode(
+        params, cfg, cache, tokens[-1], LM_PROMPT + LM_STEPS - 1))
+    log_trace(f"{LM_ARCH} decode step b={LM_BATCH}", prof)
+    # the same prompts again: rows 0..LM_PROMPT-1 get the same K/V
+    prof_prefill = trace_call(torch, lambda: serve_prefill(
+        params, cfg, cache, prompts))
+    log_trace(f"{LM_ARCH} prefill {LM_BATCH}x{LM_PROMPT}", prof_prefill)
+    return counts, {"prefill_ms": prefill_s * 1e3, "decode_step_ms": step_ms,
+                    "decode_step_median_ms": median,
+                    "decode_host_wall_ms": decode_s * 1e3 / LM_STEPS,
+                    "decode_step_bound_ms": step_bound,
+                    "weight_bytes": w_bytes, "cache_len": T,
+                    "generated": gen.tolist(), "profile_decode": prof,
+                    "profile_prefill": prof_prefill}
+
+
+def lm_phase(torch):
+    """Slice 2: the logits checks, the kernels at the path's shapes, the
+    served prefill and decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    full = get_config(LM_ARCH)
+    g = torch.Generator(device=DEV).manual_seed(60)
+    prompts = torch.randint(0, full.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=DEV)
+    details = {}
+    # (a) full width, 2 layers, float32
+    small = dataclasses.replace(full, num_layers=2, dtype="float32")
+    params = init_params(small, seed=61, device=DEV)
+    _, details["fp32_2_layers"] = lm_logits_check(
+        torch, small, params, prompts, LM_FP32_REL,
+        f"{LM_ARCH} full width 2 layers float32")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) full width and depth, bfloat16
+    t0 = time.perf_counter()
+    params = init_params(full, seed=62, device=DEV)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for _, t in _named(params))
+    log(f"{LM_ARCH} random init: {n_bytes / 1e9:.2f} GB bfloat16 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    calls, details["bf16_full_depth"] = lm_logits_check(
+        torch, full, params, prompts, LM_BF16_REL,
+        f"{LM_ARCH} full width and depth bfloat16")
+    lm_path_calls(calls, full.num_layers)
+    entries, details["kernels"] = check_lm_kernels(torch, calls)
+    counts, details["slice"] = serve_lm(torch, full, params)
+    for name, e in entries.items():
+        e["launches"] = counts[name]
+    return entries, counts, details
 
 
 def main(argv=None) -> int:
@@ -554,13 +1128,19 @@ def main(argv=None) -> int:
     details["small_cascade"] = small_cascade_agrees_with_cpu(torch, np)
     counts, details["slice"], casc = serve_slice(torch, np, full_cfg, dcfg)
     details["profile"] = profile_stage(torch, casc)
-    fa_entry["launches"] = counts["flash_attention"]
-    gn_entry["launches"] = counts["fused_groupnorm"]
+    del casc
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_entries, lm_counts, details["lm"] = lm_phase(torch)
     kernels = []
-    for e in (fa_entry, gn_entry):
+    for e in (fa_entry, gn_entry, *lm_entries.values()):
+        by_path = {"diffusion": counts[e["name"]], "lm": lm_counts[e["name"]]}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
         kernels.append({k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per",
+            "launches_by_path")})
     details["wall_s"] = time.perf_counter() - t_start
     if args.out:
         out = Path(args.out)

@@ -1,13 +1,124 @@
-"""The configs the diffusion serving path needs: the UNet variant and the
-per-tier execution-latency profile e(b). Copies of the JAX package's
-``DiffusionConfig`` and ``LatencyProfile``; ``ServingConfig`` and the
-cascade specs come with the control plane. Pure data: nothing here
+"""The configs the ported serving paths need: the decoder-only LM
+(``ModelConfig`` and its sub-configs), the UNet variant and the per-tier
+execution-latency profile e(b). Copies of the JAX package's classes of
+the same names, with the same fields and defaults; ``ServingConfig`` and
+the cascade specs come with the control plane. Pure data: nothing here
 touches a device.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+# A transformer stack is (prefix_pattern, period_pattern * n_periods).
+# Each entry is (mixer, ffn): mixer in {"attn", "mla", "mamba", "mlstm",
+# "slstm"}, ffn in {"mlp", "moe", None}.
+BlockSpec = Tuple[str, Optional[str]]
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    d_ff: int = 0                     # per-expert hidden dim
+    router_aux_coef: float = 0.001    # load-balance loss coefficient
+    router_dtype: str = "float32"
+    capacity_factor: float = 1.25     # per-expert buffer slack (drops above)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention."""
+    q_lora_rank: int = 0              # 0 => dense q projection
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                  # 0 => ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    proj_factor: float = 2.0          # mLSTM up-projection
+    conv_kernel: int = 4
+    slstm_proj_factor: float = 4.0 / 3.0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A decoder-only LM. The port runs the dense ("attn", "mlp") stack;
+    the other mixers and MoE are listed in ROADMAP.md."""
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 => d_model // num_heads
+
+    # Norm / position / activations
+    norm: str = "rmsnorm"             # rmsnorm | layernorm | nonparam_ln
+    norm_eps: float = 1e-5
+    rope: str = "rope"                # rope | mrope | none
+    rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = ()
+    pos_emb: str = "none"             # none | learned
+    mlp: str = "swiglu"               # swiglu | gelu
+    tie_embeddings: bool = False
+    max_position: int = 1 << 20
+
+    # Block layout
+    prefix_pattern: Tuple[BlockSpec, ...] = ()
+    period_pattern: Tuple[BlockSpec, ...] = (("attn", "mlp"),)
+
+    # Sub-configs
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    mla: Optional[MLAConfig] = None
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    xlstm: XLSTMConfig = field(default_factory=XLSTMConfig)
+
+    # Frontend
+    input_mode: str = "tokens"        # tokens | embeddings
+    num_position_dims: int = 1        # 3 for M-RoPE (t, h, w)
+
+    # Multi-token prediction (DeepSeek-V3)
+    mtp_depth: int = 0
+
+    # Implementation knobs of the JAX package (sharding, remat, scan);
+    # kept so that a config is the same data in both packages
+    attn_impl: str = "xla"
+    remat: str = "none"
+    scan_layers: bool = True
+    dtype: str = "bfloat16"
+    fsdp: bool = False
+    sequence_parallel: bool = False
+    opt_8bit_moments: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def n_periods(self) -> int:
+        body = self.num_layers - len(self.prefix_pattern)
+        if body % max(len(self.period_pattern), 1) != 0:
+            raise ValueError(
+                f"{self.name}: {body} body layers not divisible by period "
+                f"{len(self.period_pattern)}")
+        return body // len(self.period_pattern)
+
+    def flat_pattern(self) -> Tuple[BlockSpec, ...]:
+        return self.prefix_pattern + self.period_pattern * self.n_periods
 
 
 @dataclass(frozen=True)

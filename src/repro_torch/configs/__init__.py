@@ -1,0 +1,57 @@
+"""Config registry of the port: ``get_config("<arch-id>")`` at full
+scale and ``reduced_config("<arch-id>")`` for the CPU tests (same family
+and topology, tiny dims). Copies of the JAX package's ``repro.configs``
+for the archs whose serving path the port runs: the dense LMs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, List
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.configs.shapes import SHAPES, ShapeConfig  # noqa: F401
+
+ARCH_IDS: List[str] = ["smollm-135m", "yi-9b"]
+
+_MODULES = {"smollm-135m": "smollm_135m", "yi-9b": "yi_9b"}
+
+_cache: Dict[str, ModelConfig] = {}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _cache:
+        if arch_id not in _MODULES:
+            raise KeyError(f"unknown arch {arch_id!r}; the port has "
+                           f"{ARCH_IDS}")
+        mod = importlib.import_module(
+            f"repro_torch.configs.{_MODULES[arch_id]}")
+        _cache[arch_id] = mod.make_config()
+    return _cache[arch_id]
+
+
+def reduced_config(arch_id: str) -> ModelConfig:
+    """The JAX package's reduction: at most 4 heads of width 16, d_ff
+    4 * d_model, vocab 256, two periods, float32. (Its MoE, MLA, SSM and
+    M-RoPE branches belong to archs the port does not register yet.)"""
+    cfg = get_config(arch_id)
+    heads = min(cfg.num_heads, 4)
+    kv = max(1, min(cfg.num_kv_heads, heads))
+    if heads % kv:
+        kv = 1
+    d_model = 16 * heads
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-reduced",
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=16 if cfg.head_dim else 0,
+        d_ff=(4 * d_model) if cfg.d_ff else 0,
+        vocab_size=256,
+        max_position=4096,
+        num_layers=len(cfg.prefix_pattern) + 2 * len(cfg.period_pattern),
+        remat="none",
+        fsdp=False,
+        dtype="float32",
+    )

@@ -4,8 +4,8 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:
 flash_attention`` (body ``_flash_kernel``). The CUDA C++ kernel is built
 by nvcc for ``sm_90a`` into a shared library with a plain C interface
 (``kernels/build.py``) and called through ctypes on PyTorch's current
-stream. Its plain PyTorch version is ``plain_flash_attention`` (the same
-function as ``kernels/ref.flash_attention_ref``).
+stream. Its plain PyTorch version is ``kernels/ref.flash_attention_ref``
+(``ops.PLAIN``).
 
 Bound on an H100 SXM at the UNet's shape (q (8,256,4,128), k/v
 (8,264,4,128), f32, non-causal): 1.11 GFLOP at the 67 TFLOP/s fp32
@@ -23,13 +23,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref as plain_flash_attention
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
-__all__ = ["flash_attention", "plain_flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "HEAD_DIMS"]
 
 
 def _forward():

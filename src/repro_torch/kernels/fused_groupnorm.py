@@ -5,8 +5,8 @@ fused_groupnorm`` (body ``_gn_kernel``): per-sample GroupNorm over
 (spatial x C/g) with fp32 mean and population variance, eps 1e-5, then
 per-channel scale/bias, then an optional SiLU, on channels-last
 ``(B, ..., C)``; the group count shrinks to the largest divisor of C.
-Its plain PyTorch version is ``plain_groupnorm`` (the same function as
-``kernels/ref.groupnorm_silu_ref``).
+Its plain PyTorch version is ``kernels/ref.groupnorm_silu_ref``
+(``ops.PLAIN``).
 
 Triton fits because the kernel is one reduction (per-(sample, group)
 mean and variance) followed by one fused elementwise pass (normalise,
@@ -36,9 +36,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ref import group_count
-from repro_torch.kernels.ref import groupnorm_silu_ref as plain_groupnorm
 
-__all__ = ["fused_groupnorm", "plain_groupnorm"]
+__all__ = ["fused_groupnorm"]
 
 # triton.language, bound at the first launch; the kernel body reads it
 # from this module's globals when triton compiles it

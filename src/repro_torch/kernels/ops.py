@@ -1,4 +1,4 @@
-"""Device dispatch for every kernel of the serving path.
+"""Device dispatch for every kernel of the ported serving paths.
 
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, or raises. No path falls back from a
@@ -12,12 +12,25 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_groupnorm as _gn
+from repro_torch.kernels import fused_rmsnorm as _rms
 from repro_torch.kernels import ref
+from repro_torch.kernels import swiglu as _swiglu
 
 KERNELS = {"flash_attention": _flash.flash_attention,
-           "fused_groupnorm": _gn.fused_groupnorm}
+           "fused_groupnorm": _gn.fused_groupnorm,
+           "decode_attention": _decode.decode_attention,
+           "fused_rmsnorm": _rms.fused_rmsnorm,
+           "swiglu": _swiglu.swiglu}
+# each kernel's plain PyTorch version: what a CPU tensor runs, and what
+# a kernel is held against on the card
+PLAIN = {"flash_attention": ref.flash_attention_ref,
+         "fused_groupnorm": ref.groupnorm_silu_ref,
+         "decode_attention": ref.decode_attention_ref,
+         "fused_rmsnorm": ref.rmsnorm_ref,
+         "swiglu": ref.swiglu_ref}
 
 
 def _device_type(t: torch.Tensor, kernel: str) -> str:
@@ -47,6 +60,32 @@ def fused_groupnorm(x, scale, bias, *, groups: int, act: bool = True,
                                act=act, eps=eps)
 
 
+def decode_attention(q, k, v, valid_len):
+    """q: (B,H,D) one token; k, v: (B,T,KH,D); valid_len: (B,) int32.
+    See ``ref.decode_attention_ref``."""
+    if _device_type(q, "decode_attention") == "cpu":
+        return ref.decode_attention_ref(q, k, v, valid_len)
+    return _decode.decode_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), valid_len.contiguous())
+
+
+def fused_rmsnorm(x, scale, *, residual=None, eps: float = 1e-5):
+    """x: (..., D). With ``residual``, returns ``(normed, x + residual)``.
+    See ``ref.rmsnorm_ref``."""
+    if _device_type(x, "fused_rmsnorm") == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps=eps, residual=residual)
+    return _rms.fused_rmsnorm(
+        x.contiguous(), scale.contiguous(), eps=eps,
+        residual=None if residual is None else residual.contiguous())
+
+
+def swiglu(gate, up):
+    """silu(gate) * up. See ``ref.swiglu_ref``."""
+    if _device_type(gate, "swiglu") == "cpu":
+        return ref.swiglu_ref(gate, up)
+    return _swiglu.swiglu(gate.contiguous(), up.contiguous())
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -57,6 +96,8 @@ def reset_launch_counts() -> None:
 
 
 def specialization_count() -> int:
-    """Distinct Triton specialisations launched so far (the counterpart
-    of an XLA compile); the CUDA C++ kernel is compiled ahead of time."""
+    """Distinct Triton specialisations of the diffusion path's GroupNorm
+    kernel launched so far (the counterpart of an XLA compile, watched
+    by ``ClusterRuntime.measure_profile``); the CUDA C++ kernels are
+    compiled ahead of time."""
     return len(_gn.fused_groupnorm.specializations)

@@ -59,3 +59,47 @@ def groupnorm_silu_ref(x, scale, bias, *, groups: int, eps: float = 1e-5,
     if act:
         out = torch.nn.functional.silu(out)
     return out.reshape(shape).to(x.dtype)
+
+
+def decode_attention_ref(q, k, v, valid_len):
+    """One new token per sequence against a KV cache. q: (B,H,D);
+    k, v: (B,T,KH,D) with H = KH*G; valid_len: (B,) int, the live cache
+    entries of each sequence (columns at or past it are masked). fp32
+    scores and softmax, output ``acc / max(l, 1e-30)`` in q's dtype: the
+    TPU kernel's arithmetic, so a sequence with ``valid_len = 0`` gets
+    zeros (the JAX package's jnp oracle gives NaN there)."""
+    B, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) / math.sqrt(D)
+    pos = torch.arange(T, device=q.device)
+    live = pos[None, :] < valid_len.to(q.device).reshape(B, 1)
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    acc = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    o = acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def rmsnorm_ref(x, scale, *, eps: float = 1e-5, residual=None):
+    """RMSNorm x scale over the last dim in fp32, output in x's dtype.
+    With ``residual`` the input is ``x + residual`` summed in fp32 and
+    the result is ``(normed, (x + residual) in x's dtype)``, the two
+    outputs of the TPU kernel's residual variant."""
+    xf = x.float()
+    if residual is not None:
+        xf = xf + residual.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    if residual is None:
+        return out
+    return out, xf.to(x.dtype)
+
+
+def swiglu_ref(gate, up):
+    """silu(gate) * up in fp32, output in gate's dtype."""
+    g = gate.float()
+    return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)

@@ -1,2 +1,3 @@
-"""Models of the diffusion serving path: latent UNet, DDIM sampler,
-EfficientNet-style discriminator, and the JAX parameter converter."""
+"""Models of the ported serving paths: latent UNet, DDIM sampler and
+EfficientNet-style discriminator (diffusion); the dense decoder-only LM,
+its layers and KV cache; and the JAX parameter converter."""

@@ -18,14 +18,20 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models.unet import _fused_attn
 from repro_torch.kernels import build, impls
+from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_groupnorm as tgn
+from repro_torch.kernels import fused_rmsnorm as trms
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import swiglu as tswiglu
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 REPO = Path(__file__).resolve().parents[1]
+NO_LAUNCHES = {"flash_attention": 0, "fused_groupnorm": 0,
+               "decode_attention": 0, "fused_rmsnorm": 0, "swiglu": 0}
 
 
 def _tol(dtype):
@@ -119,6 +125,77 @@ def test_unpadded_sk264_matches_jax_padded_route():
 
 
 # ---------------------------------------------------------------------------
+# The LM kernels: the grids of tests/test_kernels.py, against the JAX
+# kernel in interpret mode and the JAX package's jnp oracle
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,D,T,bk", [
+    (2, 4, 2, 32, 256, 64),
+    (1, 8, 8, 16, 128, 128),
+    (3, 6, 1, 64, 192, 64),
+])
+def test_decode_attention_matches_jax_kernel(dtype, B, H, KH, D, T, bk):
+    q, k, v = _normal(7, (B, H, D), (B, T, KH, D), (B, T, KH, D))
+    vl = np.random.default_rng(0).integers(1, T + 1, B).astype(np.int32)
+    jq, jk, jv = (_jax(a, dtype) for a in (q, k, v))
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(vl),
+                                 impl="interpret", block_k=bk)
+    oracle = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(vl))
+    got = ops.decode_attention(_torch(q, dtype), _torch(k, dtype),
+                               _torch(v, dtype), torch.from_numpy(vl))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+def test_decode_attention_valid_len_zero_gives_zeros():
+    """The TPU kernel's ``acc / max(l, 1e-30)`` gives zeros for a
+    sequence with no live entry (the jnp oracle gives NaN); the plain
+    version follows the kernel."""
+    q, k, v = _normal(8, (2, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16))
+    vl = np.array([0, 5], np.int32)
+    want = jops.decode_attention(_jax(q), _jax(k), _jax(v), jnp.asarray(vl),
+                                 impl="interpret", block_k=64)
+    got = ops.decode_attention(_torch(q), _torch(k), _torch(v),
+                               torch.from_numpy(vl))
+    assert not got[0].any()
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 64), (4, 16, 96), (2, 3, 5, 128)])
+def test_rmsnorm_matches_jax_kernel(shape, dtype, residual):
+    x, r = _normal(9, shape, shape)
+    s = np.linspace(0.5, 1.5, shape[-1]).astype(np.float32)
+    res = _jax(r, dtype) if residual else None
+    want = jops.fused_rmsnorm(_jax(x, dtype), _jax(s), residual=res,
+                              impl="interpret")
+    oracle = jref.rmsnorm_ref(_jax(x, dtype), _jax(s), residual=res)
+    got = ops.fused_rmsnorm(_torch(x, dtype), _torch(s),
+                            residual=_torch(r, dtype) if residual else None)
+    if residual:
+        (got, got_sum), (want, want_sum) = got, want
+        assert got_sum.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_np(got_sum), _np(want_sum), **_tol(dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 128), (2, 8, 256), (64, 512)])
+def test_swiglu_matches_jax_kernel(shape, dtype):
+    g, u = _normal(10, shape, shape)
+    want = jops.swiglu(_jax(g, dtype), _jax(u, dtype), impl="interpret")
+    oracle = jref.swiglu_ref(_jax(g, dtype), _jax(u, dtype))
+    got = ops.swiglu(_torch(g, dtype), _torch(u, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
 # Dispatch rules and launch counters
 # ---------------------------------------------------------------------------
 def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
@@ -127,8 +204,11 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     ops.flash_attention(_torch(q), _torch(k), _torch(v))
     (x,) = _normal(5, (2, 4, 4, 8))
     ops.fused_groupnorm(_torch(x), torch.ones(8), torch.zeros(8), groups=4)
-    assert ops.launch_counts() == {"flash_attention": 0,
-                                   "fused_groupnorm": 0}
+    ops.decode_attention(_torch(q[:, 0]), _torch(k), _torch(v),
+                         torch.tensor([8], dtype=torch.int32))
+    ops.fused_rmsnorm(_torch(x), torch.ones(8), residual=_torch(x))
+    ops.swiglu(_torch(x), _torch(x))
+    assert ops.launch_counts() == NO_LAUNCHES
     assert ops.specialization_count() == 0
 
 
@@ -141,24 +221,38 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tgn.fused_groupnorm(torch.zeros(1, 4, 8), torch.ones(8),
                             torch.zeros(8), groups=4)
-    assert tflash.flash_attention.launches == 0
-    assert tgn.fused_groupnorm.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        tdecode.decode_attention(t[:, 0], t, t,
+                                 torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        trms.fused_rmsnorm(t, torch.ones(16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tswiglu.swiglu(t, t)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_plain_versions_live_beside_their_kernels():
-    assert tflash.plain_flash_attention is ref.flash_attention_ref
-    assert tgn.plain_groupnorm is ref.groupnorm_silu_ref
+    """``ops.PLAIN`` names one plain version for every kernel, and it is
+    the function a CPU tensor takes through ``ops``."""
+    assert ops.PLAIN == {"flash_attention": ref.flash_attention_ref,
+                         "fused_groupnorm": ref.groupnorm_silu_ref,
+                         "decode_attention": ref.decode_attention_ref,
+                         "fused_rmsnorm": ref.rmsnorm_ref,
+                         "swiglu": ref.swiglu_ref}
+    assert ops.PLAIN.keys() == ops.KERNELS.keys()
 
 
 def test_kernel_modules_import_without_triton_or_nvcc():
     code = ("import sys; sys.modules['triton'] = None; "
             "sys.modules['jax'] = None\n"
             "from repro_torch.kernels import ops, fused_groupnorm, "
-            "flash_attention, build\n"
-            "assert ops.launch_counts() == {'flash_attention': 0, "
-            "'fused_groupnorm': 0}\n"
+            "flash_attention, build, decode_attention, fused_rmsnorm, "
+            "swiglu\n"
+            f"assert ops.launch_counts() == {NO_LAUNCHES!r}\n"
             "assert fused_groupnorm.tl is None and "
-            "flash_attention._FN is None\n")
+            "flash_attention._FN is None\n"
+            "assert fused_rmsnorm.tl is None and swiglu.tl is None and "
+            "decode_attention._FN is None\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env={"PYTHONPATH": str(REPO / "src"),
                               "PATH": "/nonexistent"},
@@ -174,13 +268,24 @@ def test_groupnorm_launch_config_covers_path_shapes():
     assert tgn.launch_config((2, 6, 6, 10), 8) == (5, 36, 2, 64, 2)
 
 
+
+def test_rmsnorm_launch_config_covers_path_widths():
+    # (BLOCK_D, num_warps): Yi-9B's d_model, smollm's 576, the test widths
+    assert trms.launch_config(4096) == (4096, 8)
+    assert trms.launch_config(576) == (1024, 2)
+    assert trms.launch_config(96) == (128, 1)
+
+
 def test_build_targets_hopper_and_keys_on_source():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    p = build.library_path("flash_attention")
-    assert p.parent == build.BUILD_DIR and p.suffix == ".so"
-    assert p == build.library_path("flash_attention")   # stable name
-    assert (build.CSRC / "flash_attention.cu").is_file()
+    for name in ("flash_attention", "decode_attention"):
+        p = build.library_path(name)
+        assert p.parent == build.BUILD_DIR and p.suffix == ".so"
+        assert p == build.library_path(name)   # stable name
+        assert (build.CSRC / f"{name}.cu").is_file()
+    assert build.library_path("flash_attention") != \
+        build.library_path("decode_attention")
 
 
 def test_kernel_impl_registry():
