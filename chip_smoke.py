@@ -8,7 +8,8 @@ Phases, each of which fails the run if it fails:
 
 1. Header: the card's name and power limit (nvidia-smi), then the
    kernels' build from the repository's sources (nvcc for the CUDA C++
-   flash attention and decode attention, one process each, in parallel;
+   flash attention, decode attention, the mLSTM and the selective scan,
+   one process each, in parallel;
    Triton compiles the GroupNorm, RMSNorm and SwiGLU kernels at first
    use).
 
@@ -53,8 +54,31 @@ Dense LM path (slice 2), after the diffusion path's tensors are freed:
    CUDA events) against the decode step's bytes bound, then
    ``torch.profiler`` traces of one decode step and one prefill.
 
-8. One JSON line listing every ported kernel, then, last, the result
-   line ``{"ok": true, "device": {...}}``.
+Recurrent-state paths: xlstm-125m at full width and depth
+(mLSTM kernel), then Jamba at full width (Mamba scan kernel, attention
+without RoPE, MoE), each after the previous model's tensors are freed:
+
+8. Full width in float32 (xlstm-125m at full depth; Jamba at 2 layers,
+   one ("mamba", "moe") and one ("attn", "mlp")): prefill and first
+   decode logits through the kernels against the plain versions
+   (relative 1e-4).
+9. Random bfloat16 weights (xlstm-125m at full depth; Jamba at 16 of
+   its 32 layers, 2 of 4 periods, 52 GB): the same against the plain
+   versions (relative 5e-2), with every kernel call recorded.
+10. The new kernel against its plain version at the recorded shapes,
+    held in float32 and in the path's dtypes, timed in the latter
+    (``cuda_ms``), beside its bound; no single PyTorch call computes
+    either recurrence, so no library time.
+11. The served run, as in 7: 4 prompts of 512 tokens, 32 greedy decode
+    steps (Jamba's attention cache 1024 rows), launch counters zeroed
+    just before and read just after and equal to the path's; prefill
+    time, median decode step against its bytes bound, ``torch.profiler``
+    traces of one decode step and one prefill.
+
+12. The wall time and the card's line again, one JSON line listing
+    every ported kernel, with its launches by path (diffusion, lm,
+    xlstm, jamba), then, last, the result line
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or without the
 repository's ``src/repro_torch`` beside it. Imports nothing of JAX.
@@ -98,6 +122,20 @@ EW_TOL = {"float32": dict(atol=3e-5, rtol=3e-5),
           "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 LM_FP32_REL = 1e-4      # max |diff| / max |logit|, 2 layers, float32
 LM_BF16_REL = 5e-2      # the same at full depth in bfloat16
+# the recurrent slices: the same traffic; Jamba cut to 2 of its 4 periods
+# (16 layers, 52 GB of bf16 weights) to fit one 80 GB card, and to one
+# ("mamba", "moe") and one ("attn", "mlp") layer in float32
+REC_ARCHS = ("xlstm-125m", "jamba-v0.1-52b")
+JAMBA_LAYERS = 16
+JAMBA_FP32_PATTERN = (("mamba", "moe"), ("attn", "mlp"))
+# the recurrences carry fp32 state in both versions: fp32 outputs and
+# states at 1e-4 (sums over up to 384 rows in another order, over up to
+# 512 steps), bf16 outputs at one bf16 rounding
+REC_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+           "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# a plain recurrence is a host loop of ~15 launches a step: time it over
+# fewer calls
+PLAIN_REC_ITERS = 3
 # decode_32k's outputs are means over 32769 values (typically ~0.01):
 # its bf16 atol is 2e-2 of the largest |output|, not 2e-2 absolute
 DECODE_32K_REL_ATOL = 2e-2
@@ -211,13 +249,15 @@ def header_and_build(torch):
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    log(f"card: {smi.stdout.strip().splitlines()[0]}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import fused_groupnorm as tgn
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention", "decode_attention"])
+    libs = build.build(["flash_attention", "decode_attention",
+                        "mlstm_chunk", "mamba_scan"])
     t_nvcc = time.perf_counter() - t0
     ptxas = [f"{lib.name.split('-')[0]}: {ln.strip()}" for lib in libs
              for ln in lib.with_suffix(".log").read_text().splitlines()
@@ -230,11 +270,12 @@ def header_and_build(torch):
                         torch.zeros(32, device=DEV), groups=8)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    log(f"build: nvcc flash_attention + decode_attention in parallel "
+    log(f"build: nvcc of the four CUDA sources in parallel "
         f"{t_nvcc:.3f} s; triton first fused_groupnorm compile "
         f"{t_triton:.3f} s (specialisations so far "
         f"{len(tgn.fused_groupnorm.specializations)})")
-    return {"nvcc_s": t_nvcc, "triton_first_s": t_triton, "ptxas": ptxas}
+    return {"card": card, "nvcc_s": t_nvcc, "triton_first_s": t_triton,
+            "ptxas": ptxas}
 
 
 # ---------------------------------------------------------------------------
@@ -567,9 +608,9 @@ def serve_slice(torch, np, full_cfg, dcfg):
     # discriminator (22 GN), tier-1 DDIM50 over the whole batch (50 UNet)
     gn_u, gn_d, fa_u = PATH_GN["unet"], PATH_GN["disc"], PATH_FA["unet"]
     steps = tier0.num_steps + tier1.num_steps
-    want = {"fused_groupnorm": len(SERVE_SIZES) * (steps * gn_u + gn_d),
-            "flash_attention": len(SERVE_SIZES) * steps * fa_u,
-            "decode_attention": 0, "fused_rmsnorm": 0, "swiglu": 0}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"fused_groupnorm": len(SERVE_SIZES) * (steps * gn_u + gn_d),
+                 "flash_attention": len(SERVE_SIZES) * steps * fa_u})
     log(f"launches over {len(SERVE_SIZES)} serves: {counts} (expected "
         f"{want}, total {sum(want.values())}); serve wall {serve_s:.3f} s")
     if counts != want:
@@ -653,8 +694,9 @@ def plain_ops():
 
 @contextlib.contextmanager
 def recorded_calls(calls):
-    """Appends (kind, shapes, dtype, extra) of every LM kernel call to
-    ``calls`` and passes the call on to the kernel."""
+    """Appends (kind, shapes, dtype, extra) of every LM kernel call (the
+    recurrences' too) to ``calls`` and passes the call on to the
+    kernel."""
     from repro_torch.kernels import ops
     saved = {name: getattr(ops, name) for name in ops.PLAIN}
 
@@ -680,8 +722,19 @@ def recorded_calls(calls):
         calls.append(("decode", (tuple(q.shape), tuple(k.shape)), dt(q),
                       tuple(valid_len.tolist())))
         return saved["decode_attention"](q, k, v, valid_len)
+
+    def mlstm(q, k, v, i_pre, f_pre, C, n, m):
+        calls.append(("mlstm", (tuple(q.shape), tuple(v.shape)), dt(q),
+                      (dt(i_pre),)))
+        return saved["mlstm_chunk"](q, k, v, i_pre, f_pre, C, n, m)
+
+    def mamba(u, dt_, A, B, C, D, h):
+        calls.append(("mamba", (tuple(u.shape), tuple(A.shape)), dt(u),
+                      (dt(dt_), dt(B), dt(C))))
+        return saved["mamba_scan"](u, dt_, A, B, C, D, h)
     ops.fused_rmsnorm, ops.swiglu = rms, swiglu
     ops.flash_attention, ops.decode_attention = flash, decode
+    ops.mlstm_chunk, ops.mamba_scan = mlstm, mamba
     try:
         yield calls
     finally:
@@ -737,18 +790,50 @@ def lm_logits_check(torch, cfg, params, prompts, rel_tol, what):
                    "greedy_agree": agree.mean().item()}
 
 
-def lm_path_calls(calls, layers):
+def path_counts(cfg, prefills: int, decodes: int):
+    """Launches of every kernel over ``prefills`` prefill and ``decodes``
+    decode forwards of ``cfg``'s path: per forward, with RMSNorm, one
+    a layer for ``ln1``, one for ``ln2`` fused with the residual add
+    (layers with an FFN) and one for the final norm; SwiGLU once per
+    SwiGLU MLP or MoE layer; attention once per attention layer (flash
+    in prefill, decode attention at S = 1); each recurrence once per
+    layer of its mixer."""
+    from repro_torch.kernels import ops
+    specs = cfg.flat_pattern()
+    fwd = prefills + decodes
+    mixers = Counter(mixer for mixer, _ in specs)
+    n_ffn = sum(ffn is not None for _, ffn in specs)
+    n_swiglu = sum(ffn == "moe" or (ffn == "mlp" and cfg.mlp == "swiglu")
+                   for _, ffn in specs)
+    rms = cfg.norm == "rmsnorm"
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"flash_attention": mixers["attn"] * prefills,
+                 "decode_attention": mixers["attn"] * decodes,
+                 "fused_rmsnorm": (len(specs) + n_ffn + 1) * fwd if rms
+                 else 0,
+                 "swiglu": n_swiglu * fwd,
+                 "mlstm_chunk": mixers["mlstm"] * fwd,
+                 "mamba_scan": mixers["mamba"] * fwd})
+    return want
+
+
+def path_calls(calls, cfg):
     """Check the recorded calls of one prefill and one decode forward
-    against the path's: per forward, RMSNorm L + 1, its residual variant
-    L, SwiGLU L, and L attention calls (flash in prefill, decode
-    attention at S = 1)."""
+    against the path's (``path_counts``), RMSNorm's two variants apart."""
     n = dict(Counter(kind for kind, *_ in calls))
-    want = {"rmsnorm": 2 * (layers + 1), "rmsnorm_res": 2 * layers,
-            "swiglu": 2 * layers, "flash": layers, "decode": layers}
-    log(f"LM path calls in one prefill + one decode step: {n} "
+    c = path_counts(cfg, 1, 1)
+    specs = cfg.flat_pattern()
+    n_res = sum(ffn is not None for _, ffn in specs) * 2 \
+        if cfg.norm == "rmsnorm" else 0
+    want = {"rmsnorm": c["fused_rmsnorm"] - n_res, "rmsnorm_res": n_res,
+            "swiglu": c["swiglu"], "flash": c["flash_attention"],
+            "decode": c["decode_attention"], "mlstm": c["mlstm_chunk"],
+            "mamba": c["mamba_scan"]}
+    want = {k: v for k, v in want.items() if v}
+    log(f"{cfg.name} path calls in one prefill + one decode step: {n} "
         f"(expected {want})")
     if n != want:
-        fail("the LM path's kernel calls per forward changed")
+        fail(f"{cfg.name}: the path's kernel calls per forward changed")
 
 
 def _time_rows(torch, kernel, plain, library, nbytes, flops, dtype):
@@ -980,8 +1065,8 @@ def serve_lm(torch, cfg, params):
     from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import cache_len, serve_decode, serve_prefill
+    from repro_torch.models import layers as L
     from repro_torch.models.kvcache import init_cache
-    L = cfg.num_layers
     T = cache_len(ShapeConfig("smoke_decode", "decode",
                               LM_PROMPT + LM_STEPS, LM_BATCH))
     g = torch.Generator(device=DEV).manual_seed(50)
@@ -999,60 +1084,109 @@ def serve_lm(torch, cfg, params):
     prefill_s = time.perf_counter() - t0
     tokens = [logits.argmax(-1, keepdim=True)]
     finite = [torch.isfinite(logits).all()]
+    # every MoE call of the decode steps keeps its router and input (a
+    # reference each, no device work), so that the bound below counts
+    # the experts this run's tokens are routed to
+    moe_apply, routed = L.moe_apply, []
+
+    def recording_moe(p, c, x):
+        routed.append((p["router"], x))
+        return moe_apply(p, c, x)
+    L.moe_apply = recording_moe
     t0 = time.perf_counter()
-    for step, (e0, e1) in enumerate(events):
-        e0.record()
-        logits, cache = serve_decode(params, cfg, cache, tokens[-1],
-                                     LM_PROMPT + step)
-        e1.record()
-        tokens.append(logits.argmax(-1, keepdim=True))
-        finite.append(torch.isfinite(logits).all())
-    torch.cuda.synchronize()
+    try:
+        for step, (e0, e1) in enumerate(events):
+            e0.record()
+            logits, cache = serve_decode(params, cfg, cache, tokens[-1],
+                                         LM_PROMPT + step)
+            e1.record()
+            tokens.append(logits.argmax(-1, keepdim=True))
+            finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+    finally:
+        L.moe_apply = moe_apply
     decode_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-    want = {"flash_attention": L, "fused_groupnorm": 0,
-            "decode_attention": L * LM_STEPS,
-            "fused_rmsnorm": (2 * L + 1) * (LM_STEPS + 1),
-            "swiglu": L * (LM_STEPS + 1)}
+    want = path_counts(cfg, 1, LM_STEPS)
     step_ms = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     median = step_ms[len(step_ms) // 2]
     gen = torch.cat(tokens, dim=1)
-    log(f"LM slice {LM_ARCH} bfloat16: prefill {LM_BATCH}x{LM_PROMPT} "
+    log(f"slice {cfg.name} {cfg.dtype}: prefill {LM_BATCH}x{LM_PROMPT} "
         f"{prefill_s * 1e3:.2f} ms; {LM_STEPS} decode steps: per-token "
         f"latency median {median:.3f} ms (min {step_ms[0]:.3f}, max "
         f"{step_ms[-1]:.3f}; CUDA events), host wall "
         f"{decode_s * 1e3 / LM_STEPS:.3f} ms a step")
-    log(f"launches over the LM slice: {counts} (expected {want})")
+    log(f"launches over the {cfg.name} slice: {counts} (expected {want})")
     if counts != want:
-        fail(f"LM launch counts {counts} != expected {want}")
+        fail(f"{cfg.name} launch counts {counts} != expected {want}")
     if not bool(torch.stack(finite).all()) or logits.shape != (
             LM_BATCH, cfg.vocab_size):
-        fail("LM slice: logits not finite or of the wrong shape")
+        fail(f"{cfg.name} slice: logits not finite or of the wrong shape")
     if not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
-        fail("LM slice: generated tokens outside the vocabulary")
+        fail(f"{cfg.name} slice: generated tokens outside the vocabulary")
     # the decode step's bytes bound: every weight but the embedding table
-    # (the step gathers 4 of its rows), and the live K/V rows, once
+    # (the step gathers 4 of its rows) and the experts no token of the
+    # step is routed to, the live K/V rows once, and every recurrent
+    # state read and written once
+    experts = ("e_wi", "e_wg", "e_wo")
+    e_bytes = sum(t.numel() * t.element_size() for name, t in _named(params)
+                  if name.rsplit("/", 1)[-1] in experts)
     w_bytes = sum(t.numel() * t.element_size() for name, t in _named(params)
-                  if name != "embed/embedding")
-    kv_bytes = 2 * L * LM_BATCH * (LM_PROMPT + LM_STEPS // 2) \
+                  if name != "embed/embedding") - e_bytes
+    n_attn = sum(mixer == "attn" for mixer, _ in cfg.flat_pattern())
+    kv_bytes = 2 * n_attn * LM_BATCH * (LM_PROMPT + LM_STEPS // 2) \
         * cfg.num_kv_heads * cfg.resolved_head_dim * 2
-    step_bound = (w_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
-    log(f"decode step bound: {w_bytes / 1e9:.2f} GB of weights + "
-        f"{kv_bytes / 1e9:.3f} GB of live K/V (mean step) at "
-        f"{PEAK_BYTES_S / 1e12:.2f} TB/s = {step_bound:.3f} ms; the median "
+    state_bytes = 2 * sum(t.numel() * t.element_size() for entry in cache
+                          for name, t in entry.items()
+                          if name not in ("k", "v"))
+    routed_bytes = [0.0] * LM_STEPS
+    n_moe = sum(ffn == "moe" for _, ffn in cfg.flat_pattern())
+    if n_moe:
+        if len(routed) != n_moe * LM_STEPS:
+            fail(f"{cfg.name}: {len(routed)} MoE calls recorded over the "
+                 f"decode steps, expected {n_moe * LM_STEPS}")
+        per_expert = e_bytes / (n_moe * cfg.moe.num_experts)
+        for i, (router, x) in enumerate(routed):
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router,
+                                  dim=-1)
+            hit = torch.topk(probs, cfg.moe.top_k, dim=-1).indices.unique()
+            routed_bytes[i // n_moe] += hit.numel() * per_expert
+    step_bounds = [(w_bytes + r + kv_bytes + state_bytes) / PEAK_BYTES_S
+                   * 1e3 for r in routed_bytes]
+    step_bound = sum(step_bounds) / LM_STEPS
+    mean_routed = sum(routed_bytes) / LM_STEPS
+    log(f"decode step bound (mean of the {LM_STEPS} steps): "
+        f"{w_bytes / 1e9:.2f} GB of weights but experts + "
+        f"{mean_routed / 1e9:.2f} GB of the experts the step routes to + "
+        f"{kv_bytes / 1e9:.3f} GB of live K/V (mean step) + "
+        f"{state_bytes / 1e9:.4f} GB of recurrent state in and out at "
+        f"{PEAK_BYTES_S / 1e12:.2f} TB/s = {step_bound:.3f} ms (steps "
+        f"{min(step_bounds):.3f}..{max(step_bounds):.3f}); the median "
         f"step takes {median / step_bound:.2f}x the bound")
+    if n_moe:
+        disp = (w_bytes + e_bytes + kv_bytes + state_bytes) / PEAK_BYTES_S \
+            * 1e3
+        log(f"the capacity dispatch reads all {cfg.moe.num_experts} experts "
+            f"of each MoE layer: {e_bytes / 1e9:.2f} GB of experts, not "
+            f"{mean_routed / 1e9:.2f}; its step reads {disp:.3f} ms of "
+            f"bytes, {disp / step_bound:.2f}x the step's bound")
     prof = trace_call(torch, lambda: serve_decode(
         params, cfg, cache, tokens[-1], LM_PROMPT + LM_STEPS - 1))
-    log_trace(f"{LM_ARCH} decode step b={LM_BATCH}", prof)
-    # the same prompts again: rows 0..LM_PROMPT-1 get the same K/V
+    log_trace(f"{cfg.name} decode step b={LM_BATCH}", prof)
+    # the same prompts again: rows 0..LM_PROMPT-1 get the same K/V (a
+    # recurrent state just runs on: the work is the same)
     prof_prefill = trace_call(torch, lambda: serve_prefill(
         params, cfg, cache, prompts))
-    log_trace(f"{LM_ARCH} prefill {LM_BATCH}x{LM_PROMPT}", prof_prefill)
+    log_trace(f"{cfg.name} prefill {LM_BATCH}x{LM_PROMPT}", prof_prefill)
     return counts, {"prefill_ms": prefill_s * 1e3, "decode_step_ms": step_ms,
                     "decode_step_median_ms": median,
                     "decode_host_wall_ms": decode_s * 1e3 / LM_STEPS,
                     "decode_step_bound_ms": step_bound,
-                    "weight_bytes": w_bytes, "cache_len": T,
+                    "decode_step_bounds_ms": step_bounds,
+                    "weight_bytes": w_bytes, "routed_expert_bytes":
+                    routed_bytes, "expert_bytes": e_bytes,
+                    "state_bytes": state_bytes,
+                    "cache_len": T,
                     "generated": gen.tolist(), "profile_decode": prof,
                     "profile_prefill": prof_prefill}
 
@@ -1086,12 +1220,186 @@ def lm_phase(torch):
     calls, details["bf16_full_depth"] = lm_logits_check(
         torch, full, params, prompts, LM_BF16_REL,
         f"{LM_ARCH} full width and depth bfloat16")
-    lm_path_calls(calls, full.num_layers)
+    path_calls(calls, full)
     entries, details["kernels"] = check_lm_kernels(torch, calls)
     counts, details["slice"] = serve_lm(torch, full, params)
     for name, e in entries.items():
         e["launches"] = counts[name]
     return entries, counts, details
+
+
+# ---------------------------------------------------------------------------
+# the recurrent-state paths: xlstm-125m and Jamba
+# ---------------------------------------------------------------------------
+def _rec_case(torch, g, kind, shape, dt, extra, fp32):
+    """(kernel call, plain call, bytes, flops, the kernel's state, the
+    plain version's state) of one recorded recurrence call on fresh
+    inputs, in the path's dtypes or (``fp32``) all float32. The state is
+    zero (m = -inf) for a prompt and one reached mid-sequence for a
+    decode step; each call of the pair gets its own copy, since both
+    overwrite it."""
+    from repro_torch.kernels import mamba_scan as tmamba
+    from repro_torch.kernels import mlstm_chunk as tmlstm
+    from repro_torch.kernels import ref
+    f32 = torch.float32
+
+    def typed(name):
+        return f32 if fp32 else getattr(torch, name)
+
+    def rand(shp, dtype=f32, scale=1.0):
+        return (torch.randn(shp, generator=g, device=DEV) * scale).to(dtype)
+    if kind == "mlstm":
+        (B, T, H, dk), (_, _, _, dv) = shape
+        q, v = rand((B, T, H, dk), typed(dt)), rand((B, T, H, dv), typed(dt))
+        k = rand((B, T, H, dk), typed(dt), dk ** -0.5)
+        ip, fp = rand((B, T, H), typed(extra[0])), \
+            (rand((B, T, H)) + 2.0).to(typed(extra[0]))
+        if T == 1:
+            state = (rand((B, H, dk, dv), scale=0.3),
+                     rand((B, H, dk)).abs() + 0.1, rand((B, H)))
+        else:
+            state = (torch.zeros(B, H, dk, dv, device=DEV),
+                     torch.zeros(B, H, dk, device=DEV),
+                     torch.full((B, H), float("-inf"), device=DEV))
+        mine, plain = [t.clone() for t in state], [t.clone() for t in state]
+        el = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * el \
+            + 2 * ip.numel() * ip.element_size() \
+            + 2 * sum(t.numel() * 4 for t in state)
+        # per step and head: C's update and read-out (a multiply and two
+        # FMAs an element), n's (an FMA and a multiply, an FMA a row),
+        # ig v and the division (a column each)
+        flops = (5.0 * dk * dv + 5 * dk + 2 * dv) * B * T * H
+        return (lambda: tmlstm.mlstm_chunk(q, k, v, ip, fp, *mine),
+                lambda: ref.mlstm_chunk_ref(q, k, v, ip, fp, *plain),
+                nbytes, flops, mine, plain)
+    (Bt, T, E), (_, N) = shape
+    u = rand((Bt, T, E), typed(dt), 0.5)
+    dtv = (torch.nn.functional.softplus(rand((Bt, T, E))) * 0.1).to(
+        typed(extra[0]))
+    A = -rand((E, N)).abs()
+    Bm, Cm = rand((Bt, T, N), typed(extra[1]), 0.3), \
+        rand((Bt, T, N), typed(extra[2]), 0.3)
+    D = torch.ones(E, device=DEV)
+    h0 = rand((Bt, E, N)) if T == 1 else torch.zeros(Bt, E, N, device=DEV)
+    mine, plain = h0.clone(), h0.clone()
+    nbytes = sum(t.numel() * t.element_size() for t in (u, dtv, Bm, Cm, A,
+                                                         D)) \
+        + u.numel() * u.element_size() + 2 * h0.numel() * 4
+    flops = (7.0 * N + 3) * Bt * T * E
+    return (lambda: tmamba.mamba_scan(u, dtv, A, Bm, Cm, D, mine),
+            lambda: ref.mamba_scan_ref(u, dtv, A, Bm, Cm, D, plain),
+            nbytes, flops, [mine], [plain])
+
+
+def check_recurrent_kernel(torch, calls, arch):
+    """The slice's recurrence against its plain version at the recorded
+    shapes: held in float32 and in the path's dtypes (bf16 inputs, fp32
+    state), outputs and final states; timed in the path's dtypes. The
+    operations are fp32 (the state math), so the bound takes the fp32
+    peak. Returns the kernel-line entry (times summed over one prefill
+    and one decode step) and the rows."""
+    name, kind, src, replaces = {
+        "xlstm-125m": ("mlstm_chunk", "mlstm",
+                       "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+                       "src/repro/kernels/mlstm_chunk.py:57"),
+        "jamba-v0.1-52b": ("mamba_scan", "mamba",
+                           "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                           "src/repro/kernels/mamba_scan.py:48")}[arch]
+    g = torch.Generator(device=DEV).manual_seed(70)
+    mult = Counter((k, shape, dt, extra) for k, shape, dt, extra in calls
+                   if k == kind)
+    rows, worst = [], 0.0
+    for (_, shape, dt, extra), n in sorted(mult.items(), key=str):
+        for fp32 in (True, False):
+            kernel, plain, nbytes, flops, st_k, st_p = _rec_case(
+                torch, g, kind, shape, dt, extra, fp32)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            tol = REC_TOL["float32" if fp32 else "bfloat16"]
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got).all():
+                fail(f"{name} {shape}: output not finite")
+            torch.testing.assert_close(got, want, **tol)
+            for a, b in zip(st_k, st_p):         # final states, fp32
+                torch.testing.assert_close(a, b, **REC_TOL["float32"])
+            what = f"{name} {shape} {'float32' if fp32 else (dt, extra)} x{n}"
+            if fp32:
+                worst = max(worst, err)
+                log(f"{what}: max|err| {err:.3e} (tol {tol})")
+                continue
+            b_ms, b_by = bound_ms(nbytes, flops, "float32")
+            row = {"kind": kind, "shape": shape, "dtype": dt, "extra": extra,
+                   "per_path": n, "max_abs_err": err,
+                   "ms": cuda_ms(torch, kernel),
+                   "plain_ms": cuda_ms(torch, plain, iters=PLAIN_REC_ITERS,
+                                       reps=1),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(f"{what} (tol {tol}): max|err| {err:.3e}; kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library none, bound {b_ms:.4f} ms ({b_by}; "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP fp32)")
+    tot = {key: sum(r["per_path"] * r[key] for r in rows)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    ops_ms = sum(r["per_path"] * r["bound_ms"] for r in rows
+                 if r["bound_by"] == "operations")
+    entry = {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces, "max_abs_err": worst, **tot,
+             "library_ms": None,
+             "bound_by": "operations" if 2 * ops_ms >= tot["bound_ms"]
+             else "bytes",
+             "per": f"one {arch} prefill ({LM_BATCH}x{LM_PROMPT}) and one "
+                    f"decode step, path dtypes: "
+                    f"{sum(r['per_path'] for r in rows)} launches"}
+    return entry, rows
+
+
+def recurrent_phase(torch, arch):
+    """One recurrent model: the float32 and bfloat16 logits checks, its
+    recurrence kernel at the recorded shapes, the served run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import count_params, init_params
+    full = get_config(arch)
+    g = torch.Generator(device=DEV).manual_seed(80)
+    prompts = torch.randint(0, full.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=DEV)
+    jamba = arch == "jamba-v0.1-52b"
+    details = {}
+    # (a) full width in float32: xLSTM at full depth, Jamba at 2 layers
+    small = dataclasses.replace(full, dtype="float32")
+    if jamba:
+        small = dataclasses.replace(small, num_layers=2,
+                                    period_pattern=JAMBA_FP32_PATTERN)
+    params = init_params(small, seed=81, device=DEV)
+    _, details["fp32"] = lm_logits_check(
+        torch, small, params, prompts, LM_FP32_REL,
+        f"{arch} full width {small.num_layers} layers float32 "
+        f"({count_params(small) / 1e9:.3f} B parameters)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) bfloat16: xLSTM at full depth, Jamba at 16 of 32 layers
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS) if jamba \
+        else full
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=82, device=DEV)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for _, t in _named(params))
+    log(f"{arch} random init, {cfg.num_layers} layers: "
+        f"{count_params(cfg) / 1e9:.3f} B parameters, "
+        f"{n_bytes / 1e9:.2f} GB bfloat16 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    calls, details["bf16"] = lm_logits_check(
+        torch, cfg, params, prompts, LM_BF16_REL,
+        f"{arch} full width {cfg.num_layers} layers bfloat16")
+    path_calls(calls, cfg)
+    entry, details["kernel"] = check_recurrent_kernel(torch, calls, arch)
+    counts, details["slice"] = serve_lm(torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry, counts, details
 
 
 def main(argv=None) -> int:
@@ -1132,9 +1440,17 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_entries, lm_counts, details["lm"] = lm_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_entries, rec_counts = [], {}
+    for arch in REC_ARCHS:
+        entry, rec_counts[arch], details[arch] = recurrent_phase(torch, arch)
+        rec_entries.append(entry)
     kernels = []
-    for e in (fa_entry, gn_entry, *lm_entries.values()):
-        by_path = {"diffusion": counts[e["name"]], "lm": lm_counts[e["name"]]}
+    for e in (fa_entry, gn_entry, *lm_entries.values(), *rec_entries):
+        by_path = {"diffusion": counts[e["name"]], "lm": lm_counts[e["name"]],
+                   "xlstm": rec_counts[REC_ARCHS[0]][e["name"]],
+                   "jamba": rec_counts[REC_ARCHS[1]][e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         kernels.append({k: e[k] for k in (
@@ -1146,7 +1462,7 @@ def main(argv=None) -> int:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(details, indent=1, default=str))
-    log(f"wall {details['wall_s']:.1f} s")
+    log(f"wall {details['wall_s']:.1f} s; card: {details['build']['card']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,8 +54,9 @@ class XLSTMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A decoder-only LM. The port runs the dense ("attn", "mlp") stack;
-    the other mixers and MoE are listed in ROADMAP.md."""
+    """A decoder-only LM. The port runs the "attn", "mamba", "mlstm" and
+    "slstm" mixers with "mlp", "moe" or no FFN; the "mla" mixer and
+    M-RoPE are listed in ROADMAP.md."""
     name: str
     family: str                       # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int

@@ -16,6 +16,8 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_groupnorm as _gn
 from repro_torch.kernels import fused_rmsnorm as _rms
+from repro_torch.kernels import mamba_scan as _mamba
+from repro_torch.kernels import mlstm_chunk as _mlstm
 from repro_torch.kernels import ref
 from repro_torch.kernels import swiglu as _swiglu
 
@@ -23,14 +25,18 @@ KERNELS = {"flash_attention": _flash.flash_attention,
            "fused_groupnorm": _gn.fused_groupnorm,
            "decode_attention": _decode.decode_attention,
            "fused_rmsnorm": _rms.fused_rmsnorm,
-           "swiglu": _swiglu.swiglu}
+           "swiglu": _swiglu.swiglu,
+           "mlstm_chunk": _mlstm.mlstm_chunk,
+           "mamba_scan": _mamba.mamba_scan}
 # each kernel's plain PyTorch version: what a CPU tensor runs, and what
 # a kernel is held against on the card
 PLAIN = {"flash_attention": ref.flash_attention_ref,
          "fused_groupnorm": ref.groupnorm_silu_ref,
          "decode_attention": ref.decode_attention_ref,
          "fused_rmsnorm": ref.rmsnorm_ref,
-         "swiglu": ref.swiglu_ref}
+         "swiglu": ref.swiglu_ref,
+         "mlstm_chunk": ref.mlstm_chunk_ref,
+         "mamba_scan": ref.mamba_scan_ref}
 
 
 def _device_type(t: torch.Tensor, kernel: str) -> str:
@@ -84,6 +90,28 @@ def swiglu(gate, up):
     if _device_type(gate, "swiglu") == "cpu":
         return ref.swiglu_ref(gate, up)
     return _swiglu.swiglu(gate.contiguous(), up.contiguous())
+
+
+def mlstm_chunk(q, k, v, i_pre, f_pre, C, n, m):
+    """The mLSTM recurrence from state (C, n, m), which is overwritten
+    with the final state; returns h in v's dtype. See
+    ``ref.mlstm_chunk_ref``."""
+    if _device_type(q, "mlstm_chunk") == "cpu":
+        return ref.mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m)
+    return _mlstm.mlstm_chunk(q.contiguous(), k.contiguous(),
+                              v.contiguous(), i_pre.contiguous(),
+                              f_pre.contiguous(), C, n, m)
+
+
+def mamba_scan(u, dt, A, B, C, D, h):
+    """The selective scan from state h, which is overwritten with the
+    final state; returns y in u's dtype. B and C go to the kernel as they
+    are (column slices of one projection are taken without a copy). See
+    ``ref.mamba_scan_ref``."""
+    if _device_type(u, "mamba_scan") == "cpu":
+        return ref.mamba_scan_ref(u, dt, A, B, C, D, h)
+    return _mamba.mamba_scan(u.contiguous(), dt.contiguous(),
+                             A.contiguous(), B, C, D.contiguous(), h)
 
 
 def launch_counts() -> Dict[str, int]:

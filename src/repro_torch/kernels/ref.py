@@ -103,3 +103,60 @@ def swiglu_ref(gate, up):
     """silu(gate) * up in fp32, output in gate's dtype."""
     g = gate.float()
     return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)
+
+
+def mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m):
+    """Stabilised exponential-gated mLSTM recurrence, one step at a time
+    in float32 (the arithmetic of the JAX package's ``mlstm_scan``).
+    q, k, v: (B, T, H, dh); i_pre, f_pre: (B, T, H); q is scaled by
+    dh^-1/2 here (k comes pre-scaled). State ``C`` (B, H, dk, dv), ``n``
+    (B, H, dk), ``m`` (B, H), float32, read as the initial state and
+    overwritten with the final one; from C = n = 0, m = -inf it computes
+    what the TPU kernel computes from its zero state. Returns h (B, T,
+    H, dv) in v's dtype."""
+    T, dk = q.shape[1], q.shape[-1]
+    qf = q.float() * dk ** -0.5
+    kf, vf = k.float(), v.float()
+    logf = torch.nn.functional.logsigmoid(f_pre.float())
+    ipre = i_pre.float()
+    Ct, nt, mt = C, n, m
+    hs = []
+    for t in range(T):
+        m_new = torch.maximum(logf[:, t] + mt, ipre[:, t])
+        fg = torch.exp(logf[:, t] + mt - m_new)
+        ig = torch.exp(ipre[:, t] - m_new)
+        kt = kf[:, t]
+        Ct = fg[..., None, None] * Ct \
+            + ig[..., None, None] * (kt[..., :, None] * vf[:, t, :, None, :])
+        nt = fg[..., None] * nt + ig[..., None] * kt
+        num = torch.einsum("bhd,bhde->bhe", qf[:, t], Ct)
+        den = torch.maximum(
+            torch.abs(torch.einsum("bhd,bhd->bh", qf[:, t], nt)),
+            torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        mt = m_new
+    C.copy_(Ct)
+    n.copy_(nt)
+    m.copy_(mt)
+    return torch.stack(hs, dim=1).to(v.dtype)
+
+
+def mamba_scan_ref(u, dt, A, B, C, D, h):
+    """Selective scan, one step at a time in float32 (the arithmetic of
+    the JAX package's ``selective_scan``): ``h <- exp(dt A) h + (dt u) B``,
+    ``y = h . C + D u``. u, dt: (Bt, T, E); A: (E, N); B, C: (Bt, T, N);
+    D: (E,); ``h`` (Bt, E, N) float32 is read as the initial state and
+    overwritten with the final one. Returns y (Bt, T, E) in u's dtype,
+    D u added in float32 before the cast."""
+    T = u.shape[1]
+    uf, dtf = u.float(), dt.float()
+    Bf, Cf, Af = B.float(), C.float(), A.float()
+    ht = h
+    ys = []
+    for t in range(T):
+        dA = torch.exp(dtf[:, t, :, None] * Af)
+        ht = dA * ht + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("ben,bn->be", ht, Cf[:, t]))
+    h.copy_(ht)
+    y = torch.stack(ys, dim=1) + uf * D.float()
+    return y.to(u.dtype)

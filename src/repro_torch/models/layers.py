@@ -1,5 +1,6 @@
 """Building blocks of the decoder-only LM (port of
-``repro/models/layers.py``, the dense subset).
+``repro/models/layers.py``: norms, RoPE, GQA attention, MLPs, the
+capacity-dispatched mixture of experts, embedding).
 
 Parameters are nested dicts of tensors in the JAX package's layouts
 (``wq`` (D, H, hd), ``wo`` (H, hd, D), FFN ``(D, F)``/``(F, D)``, norm
@@ -7,10 +8,11 @@ scales float32), so ``models/convert.lm_from_jax`` copies them as they
 are. Activations are in the config's dtype; norms, softmax and the
 SwiGLU product run in float32 inside their kernels. The kernels are
 reached through ``kernels/ops.py``: RMSNorm (plain and with the residual
-add), SwiGLU, flash attention over fresh K/V (train and prefill) and
-decode attention over the cache (S = 1). LayerNorm, GELU, RoPE and the
-matmuls have no kernel in the JAX package and stay plain PyTorch. The
-JAX package's sharding constraints have no counterpart on one card.
+add), SwiGLU (the MLP's and each expert's), flash attention over fresh
+K/V (train and prefill) and decode attention over the cache (S = 1).
+LayerNorm, GELU, RoPE, the MoE router and dispatch, and the matmuls
+have no kernel in the JAX package and stay plain PyTorch. The JAX
+package's sharding constraints have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -241,6 +243,79 @@ def mlp_apply(params, cfg, x):
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ params["wo_mlp"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (GShard-style capacity dispatch)
+# ---------------------------------------------------------------------------
+def moe_init(gen, cfg, device=None):
+    D = cfg.d_model
+    m = cfg.moe
+    Fd = m.d_ff or cfg.d_ff
+    dt = torch_dtype(cfg.dtype)
+    p = {"router": dense_init(gen, (D, m.num_experts), device=device),
+         "e_wi": dense_init(gen, (m.num_experts, D, Fd), dtype=dt,
+                            device=device),
+         "e_wg": dense_init(gen, (m.num_experts, D, Fd), dtype=dt,
+                            device=device),
+         "e_wo": dense_init(gen, (m.num_experts, Fd, D), dtype=dt,
+                            device=device)}
+    if m.num_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, d_ff=Fd * m.num_shared_experts,
+                               device=device)
+    return p
+
+
+def moe_capacity(tokens: int, cfg) -> int:
+    """Slots per expert: ``max(ceil(T K cf / E), 4)``."""
+    m = cfg.moe
+    return max(int(math.ceil(tokens * m.top_k * m.capacity_factor
+                             / m.num_experts)), 4)
+
+
+def moe_apply(params, cfg, x):
+    """Top-k routing with a per-expert capacity; overflow is dropped.
+
+    The JAX package's dispatch: a float32 router softmax, top-k gates
+    renormalised to sum 1, each (token, k) pair's slot its expert's count
+    of earlier pairs in the row-major (T * K) order (an exclusive
+    cumsum), pairs at or past the capacity dropped (their gate weight
+    0). The experts run as batched matmuls over (E, capacity, D) buffers,
+    with ``silu(g) * h`` through the SwiGLU kernel. Returns (y, aux), aux
+    the Switch-style load-balance loss."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = m.num_experts, m.top_k
+    xt = x.reshape(T, D)
+    probs = torch.softmax(xt.float() @ params["router"], dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)     # (T, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = moe_capacity(T, cfg)
+
+    flat_expert = expert_idx.reshape(T * K)
+    onehot = F.one_hot(flat_expert, E)                       # (TK, E)
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+    keep = pos < cap
+    dst = torch.where(keep, flat_expert * cap + pos,
+                      torch.full_like(pos, E * cap))         # drop bucket
+    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, dst, xt.repeat_interleave(K, dim=0))
+    ebuf = buf[:-1].view(E, cap, D)
+    h = ops.swiglu(torch.bmm(ebuf, params["e_wg"]),
+                   torch.bmm(ebuf, params["e_wi"]))
+    eout = torch.bmm(h, params["e_wo"])
+    flat_out = torch.cat([eout.reshape(E * cap, D),
+                          torch.zeros((1, D), dtype=x.dtype,
+                                      device=x.device)])
+    w = gate_vals.reshape(T * K, 1).to(x.dtype) * keep[:, None].to(x.dtype)
+    y = (flat_out[dst] * w).reshape(T, K, D).sum(dim=1)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], cfg, x).reshape(T, D)
+    frac_tokens = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(frac_tokens * probs.mean(dim=0)) \
+        * m.router_aux_coef
+    return y.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ Tolerances: float32 GroupNorm, RMSNorm and SwiGLU 3e-5 (the kernel
 tolerance of the JAX package); float32 attention 1e-4 (fp32 sums over
 up to 512 keys and a 128-wide head in another order than the plain
 version's matmuls); bfloat16 2e-2 (one bfloat16 rounding of outputs of
-order 1).
+order 1). The recurrences (mLSTM, selective scan) carry fp32 state in
+both versions, so their fp32 outputs and final states are held at 1e-4
+(sums over up to 384 rows in another order, compounded over up to 512
+steps) and their bf16 outputs at 2e-2.
 """
 import dataclasses
 
@@ -22,6 +25,8 @@ from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_groupnorm as tgn
 from repro_torch.kernels import fused_rmsnorm as trms
+from repro_torch.kernels import mamba_scan as tmamba
+from repro_torch.kernels import mlstm_chunk as tmlstm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import swiglu as tswiglu
 from repro_torch.models.kvcache import init_cache
@@ -119,10 +124,19 @@ def test_cuda_dispatch_launches_the_kernels(cuda):
                          torch.full((1,), 8, dtype=torch.int32, device=cuda))
     ops.fused_rmsnorm(q, torch.ones(16, device=cuda), residual=q)
     ops.swiglu(q, q)
+    z = dict(dtype=torch.float32, device=cuda)
+    ops.mlstm_chunk(q, q, q, q[..., 0], q[..., 1], torch.zeros(1, 2, 16, 16,
+                                                               **z),
+                    torch.zeros(1, 2, 16, **z), torch.zeros(1, 2, **z))
+    u = torch.randn(1, 8, 32, device=cuda)
+    ops.mamba_scan(u, u.abs(), -torch.ones(32, 4, **z), q[..., 0, :4],
+                   q[..., 1, :4], torch.ones(32, **z),
+                   torch.zeros(1, 32, 4, **z))
     assert ops.launch_counts() == {"flash_attention": 1,
                                    "fused_groupnorm": 1,
                                    "decode_attention": 1,
-                                   "fused_rmsnorm": 1, "swiglu": 1}
+                                   "fused_rmsnorm": 1, "swiglu": 1,
+                                   "mlstm_chunk": 1, "mamba_scan": 1}
 
 
 def test_unet_fused_matches_unfused_on_cuda(cuda):
@@ -139,7 +153,8 @@ def test_unet_fused_matches_unfused_on_cuda(cuda):
     assert ops.launch_counts() == {"flash_attention": 4,
                                    "fused_groupnorm": 21,
                                    "decode_attention": 0,
-                                   "fused_rmsnorm": 0, "swiglu": 0}
+                                   "fused_rmsnorm": 0, "swiglu": 0,
+                                   "mlstm_chunk": 0, "mamba_scan": 0}
     b = apply_unet(p, cfg, x, t, toks, impl="unfused")
     torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-5)
 
@@ -285,3 +300,209 @@ def test_chunked_prefill_has_no_kernel_on_cuda(cuda):
     forward(p, cfg, toks, cache=cache, mode="prefill")
     with pytest.raises(NotImplementedError, match="cache_index > 0"):
         forward(p, cfg, toks, cache=cache, cache_index=4, mode="decode")
+
+
+# ---------------------------------------------------------------------------
+# The recurrent kernels (xLSTM and Jamba slices)
+# ---------------------------------------------------------------------------
+REC_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _mlstm_inputs(g, cuda, dtype, B, T, H, dk, dv, warm):
+    """q, k (k pre-scaled by dk^-1/2, as the model does), v, gates, and a
+    state: zeros with m = -inf, or (``warm``) one reached mid-sequence."""
+    q = _randn(g, (B, T, H, dk), cuda, dtype)
+    k = (_randn(g, (B, T, H, dk), cuda) * dk ** -0.5).to(dtype)
+    v = _randn(g, (B, T, H, dv), cuda, dtype)
+    ip = _randn(g, (B, T, H), cuda)
+    fp = _randn(g, (B, T, H), cuda) + 2.0
+    z = dict(dtype=torch.float32, device=cuda)
+    C, n = torch.zeros(B, H, dk, dv, **z), torch.zeros(B, H, dk, **z)
+    m = torch.full((B, H), float("-inf"), **z)
+    if warm:
+        C = _randn(g, (B, H, dk, dv), cuda) * 0.3
+        n = _randn(g, (B, H, dk), cuda).abs() + 0.1
+        m = _randn(g, (B, H), cuda)
+    return q, k, v, ip, fp, C, n, m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,dk,dv,warm", [
+    (4, 512, 4, 384, 384, False),   # xlstm-125m prefill: dh 384, m = -inf
+    (4, 1, 4, 384, 384, True),      # decode: one step, mid-sequence state
+    (2, 13, 2, 384, 384, True),     # T not a multiple of the 8-step chunk
+    (3, 21, 2, 100, 72, False),     # dk, dv not multiples of the tiles
+    (2, 16, 2, 8, 8, True),         # the JAX kernel test's widths
+])
+def test_mlstm_kernel_matches_plain(cuda, dtype, B, T, H, dk, dv, warm):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, ip, fp, C, n, m = _mlstm_inputs(g, cuda, dtype, B, T, H, dk,
+                                             dv, warm)
+    want_state = [t.clone() for t in (C, n, m)]
+    before = tmlstm.mlstm_chunk.launches
+    got = tmlstm.mlstm_chunk(q, k, v, ip, fp, C, n, m)
+    torch.cuda.synchronize()
+    assert tmlstm.mlstm_chunk.launches == before + 1
+    want = ref.mlstm_chunk_ref(q, k, v, ip, fp, *want_state)
+    assert got.dtype == dtype and got.shape == v.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **REC_TOL[dtype])
+    for a, b in zip((C, n, m), want_state):
+        torch.testing.assert_close(a, b, **REC_TOL[torch.float32])
+
+
+def test_mlstm_kernel_runs_back_to_back_from_its_own_state(cuda):
+    """Prefill then decode steps on one state equal the plain version
+    over the same sequence in one call: the kernel's final n and m (the
+    last block's write) are the next launch's initial state."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, ip, fp, C, n, m = _mlstm_inputs(g, cuda, torch.float32, 2, 24,
+                                             4, 384, 384, False)
+    want_state = [t.clone() for t in (C, n, m)]
+    want = ref.mlstm_chunk_ref(q, k, v, ip, fp, *want_state)
+    parts = []
+    for sl in [slice(0, 20)] + [slice(t, t + 1) for t in range(20, 24)]:
+        x = [t[:, sl].contiguous() for t in (q, k, v, ip, fp)]
+        parts.append(tmlstm.mlstm_chunk(*x, C, n, m))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(parts, 1), want,
+                               **REC_TOL[torch.float32])
+    for a, b in zip((C, n, m), want_state):
+        torch.testing.assert_close(a, b, **REC_TOL[torch.float32])
+
+
+def test_mlstm_kernel_on_two_streams_at_once(cuda):
+    """Launches queued on two streams at once each keep their own arrival
+    counters: both final states (n and m, written by the last block to
+    arrive) equal the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    runs = [_mlstm_inputs(g, cuda, torch.float32, 4, 64, 4, 384, 384, False)
+            for _ in range(2)]
+    wants = []
+    for q, k, v, ip, fp, C, n, m in runs:
+        state = [t.clone() for t in (C, n, m)]
+        wants.append((ref.mlstm_chunk_ref(q, k, v, ip, fp, *state), state))
+    streams = [torch.cuda.Stream(cuda) for _ in runs]
+    torch.cuda.synchronize()
+    got = []
+    for s, x in zip(streams, runs):
+        with torch.cuda.stream(s):
+            got.append(tmlstm.mlstm_chunk(*x))
+    torch.cuda.synchronize()
+    for h, x, (want, state) in zip(got, runs, wants):
+        torch.testing.assert_close(h, want, **REC_TOL[torch.float32])
+        for a, b in zip(x[5:], state):
+            torch.testing.assert_close(a, b, **REC_TOL[torch.float32])
+
+
+def _mamba_inputs(g, cuda, Bt, T, E, N, dtypes, warm):
+    """u, dt, A, B, C, D, h with u/dt/B/C in ``dtypes``; B and C are
+    column slices of one projection, as the model hands them over."""
+    du, ddt, db, dc = dtypes
+    u = (_randn(g, (Bt, T, E), cuda) * 0.5).to(du)
+    dt = (torch.nn.functional.softplus(_randn(g, (Bt, T, E), cuda))
+          * 0.1).to(ddt)
+    A = -_randn(g, (E, N), cuda).abs()
+    proj = _randn(g, (Bt, T, 5 + 2 * N), cuda) * 0.3
+    Bm, Cm = proj[..., 5:5 + N].to(db), proj[..., 5 + N:].to(dc)
+    D = torch.ones(E, device=cuda)
+    h = _randn(g, (Bt, E, N), cuda) if warm else \
+        torch.zeros(Bt, E, N, device=cuda)
+    return u, dt, A, Bm, Cm, D, h
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("Bt,T,E,N,dtypes,warm", [
+    (4, 512, 8192, 16, (BF16, F32, BF16, BF16), False),  # Jamba prefill
+    (4, 1, 8192, 16, (BF16, F32, BF16, BF16), True),     # decode, mid state
+    (2, 45, 300, 16, (F32, F32, F32, F32), True),        # ragged T and E
+    (1, 32, 16, 4, (F32, F32, F32, F32), False),         # JAX kernel test
+    (2, 64, 32, 8, (BF16, BF16, F32, BF16), True),       # mixed dtypes
+])
+def test_mamba_kernel_matches_plain(cuda, Bt, T, E, N, dtypes, warm):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    u, dt, A, Bm, Cm, D, h = _mamba_inputs(g, cuda, Bt, T, E, N, dtypes,
+                                           warm)
+    want_h = h.clone()
+    before = tmamba.mamba_scan.launches
+    got = tmamba.mamba_scan(u, dt, A, Bm, Cm, D, h)
+    torch.cuda.synchronize()
+    assert tmamba.mamba_scan.launches == before + 1
+    want = ref.mamba_scan_ref(u, dt, A, Bm, Cm, D, want_h)
+    assert got.dtype == u.dtype and got.shape == u.shape
+    torch.testing.assert_close(got, want, **REC_TOL[u.dtype])
+    torch.testing.assert_close(h, want_h, **REC_TOL[F32])
+
+
+def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
+    z = dict(dtype=torch.float32, device=cuda)
+    q = torch.zeros(1, 4, 2, 400, **z)                       # dk > 384
+    g = torch.zeros(1, 4, 2, **z)
+    with pytest.raises(ValueError, match="dk"):
+        tmlstm.mlstm_chunk(q, q, q, g, g, torch.zeros(1, 2, 400, 400, **z),
+                           torch.zeros(1, 2, 400, **z), torch.zeros(1, 2,
+                                                                    **z))
+    q = torch.zeros(1, 4, 2, 16, **z)
+    with pytest.raises(ValueError, match="float32"):
+        tmlstm.mlstm_chunk(q, q, q, g, g, torch.zeros(1, 2, 16, 16,
+                                                      device=cuda).bfloat16(),
+                           torch.zeros(1, 2, 16, **z), torch.zeros(1, 2,
+                                                                   **z))
+    u = torch.zeros(1, 4, 32, **z)
+    A, D, h = torch.zeros(32, 20, **z), torch.zeros(32, **z), \
+        torch.zeros(1, 32, 20, **z)                          # N > 16
+    b = torch.zeros(1, 4, 20, **z)
+    with pytest.raises(ValueError, match="N=20"):
+        tmamba.mamba_scan(u, u, A, b, b, D, h)
+    A, b, h = A[:, :4].contiguous(), b[..., :4], h[..., :4].contiguous()
+    with pytest.raises(ValueError, match="u is not contiguous"):
+        tmamba.mamba_scan(torch.zeros(1, 8, 32, **z)[:, ::2], u, A, b, b, D,
+                          h)
+    with pytest.raises(ValueError, match="B is not contiguous"):
+        tmamba.mamba_scan(u, u, A, torch.zeros(1, 4, 8, **z)[..., ::2], b,
+                          D, h)
+
+
+def _recurrent_lm(cuda, arch):
+    cfg = reduced_config(arch)
+    if arch == "xlstm-125m":        # dh 384: the full model's head width
+        cfg = dataclasses.replace(cfg, d_model=768, num_heads=4)
+    else:                           # N 16, the full model's state size
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, d_state=16))
+    return cfg, init_params(cfg, seed=0, device=cuda)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_recurrent_lm_kernel_path_matches_plain_path(cuda, monkeypatch,
+                                                     arch):
+    """Reduced xlstm-125m (at dh 384) and Jamba (at N 16) in float32:
+    prefill and decode logits through the kernels equal those with every
+    ``ops`` function swapped for its plain version, and the recurrent
+    kernels ran once per layer of their kind and forward."""
+    cfg, p = _recurrent_lm(cuda, arch)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=g,
+                         device=cuda)
+
+    def run():
+        cache = init_cache(cfg, 2, 32, cuda)
+        lp, cache = forward(p, cfg, toks[:, :19], cache=cache,
+                            mode="prefill")
+        ld, _ = forward(p, cfg, toks[:, 19:], cache=cache, cache_index=19,
+                        mode="decode")
+        return lp, ld
+    ops.reset_launch_counts()
+    got = run()
+    counts = ops.launch_counts()
+    kinds = [mixer for mixer, _ in cfg.flat_pattern()]
+    assert counts["mlstm_chunk"] == 2 * kinds.count("mlstm")
+    assert counts["mamba_scan"] == 2 * kinds.count("mamba")
+    for name, plain in ops.PLAIN.items():
+        monkeypatch.setattr(ops, name, plain)
+    want = run()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -19,19 +19,24 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models.ssm import selective_scan as jax_selective_scan
 from repro.models.unet import _fused_attn
+from repro.models.xlstm import mlstm_scan as jax_mlstm_scan
 from repro_torch.kernels import build, impls
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_groupnorm as tgn
 from repro_torch.kernels import fused_rmsnorm as trms
+from repro_torch.kernels import mamba_scan as tmamba
+from repro_torch.kernels import mlstm_chunk as tmlstm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import swiglu as tswiglu
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 REPO = Path(__file__).resolve().parents[1]
 NO_LAUNCHES = {"flash_attention": 0, "fused_groupnorm": 0,
-               "decode_attention": 0, "fused_rmsnorm": 0, "swiglu": 0}
+               "decode_attention": 0, "fused_rmsnorm": 0, "swiglu": 0,
+               "mlstm_chunk": 0, "mamba_scan": 0}
 
 
 def _tol(dtype):
@@ -196,6 +201,122 @@ def test_swiglu_matches_jax_kernel(shape, dtype):
 
 
 # ---------------------------------------------------------------------------
+# The recurrences: mLSTM and selective scan, state in and state out
+# ---------------------------------------------------------------------------
+def _mlstm_inputs(seed, B, T, H, dh):
+    """The JAX kernel test's distributions: k scaled by dh^-1/2 (as
+    ``mlstm_apply`` pre-scales it), forget pre-activations around +2."""
+    q, k, v = _normal(seed, (B, T, H, dh), (B, T, H, dh), (B, T, H, dh))
+    ip, fp = _normal(seed + 1, (B, T, H), (B, T, H))
+    return q, k * dh ** -0.5, v, ip, fp + 2.0
+
+
+def _mlstm_state(B, H, dk, dv, seed=None):
+    """Zeros with m = -inf, or (``seed``) a state reached mid-sequence."""
+    if seed is None:
+        return (np.zeros((B, H, dk, dv), np.float32),
+                np.zeros((B, H, dk), np.float32),
+                np.full((B, H), -np.inf, np.float32))
+    C, n, m = _normal(seed, (B, H, dk, dv), (B, H, dk), (B, H))
+    return C * 0.3, np.abs(n) + 0.1, m
+
+
+@pytest.mark.parametrize("B,T,H,dh,chunk", [
+    (1, 16, 2, 8, 4), (2, 32, 2, 16, 8), (1, 24, 4, 8, 6)])
+def test_mlstm_plain_matches_jax_kernel(B, T, H, dh, chunk):
+    """From the zero state (m = -inf) the plain version computes what the
+    TPU kernel computes (at ``tests/test_kernels.py``'s shapes), and
+    leaves the final state in place."""
+    q, k, v, ip, fp = _mlstm_inputs(11, B, T, H, dh)
+    want = jops.mlstm_chunk(*(_jax(a) for a in (q, k, v, ip, fp)),
+                            impl="interpret", chunk=chunk)
+    state = [_torch(a) for a in _mlstm_state(B, H, dh, dh)]
+    got = ops.mlstm_chunk(*(_torch(a) for a in (q, k, v, ip, fp)), *state)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    _, jstate = jax_mlstm_scan(*(_jax(a) for a in (q, k, v, ip, fp)))
+    for name, t in zip("Cnm", state):
+        np.testing.assert_allclose(t.numpy(), np.asarray(jstate[name]),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,dh", [(2, 9, 2, 16), (1, 1, 4, 8),
+                                      (2, 20, 1, 32)])
+def test_mlstm_plain_from_state_matches_jax_scan(B, T, H, dh, dtype):
+    """From a state reached mid-sequence (T = 1 is one decode step), h
+    and the final (C, n, m) equal the JAX package's ``mlstm_scan``; h
+    comes back in v's dtype."""
+    q, k, v, ip, fp = _mlstm_inputs(12, B, T, H, dh)
+    st = _mlstm_state(B, H, dh, dh, seed=13)
+    jh, jst = jax_mlstm_scan(*(_jax(a, dtype) for a in (q, k, v)), _jax(ip),
+                             _jax(fp), dict(zip("Cnm", (_jax(a)
+                                                        for a in st))))
+    state = [_torch(a) for a in st]
+    got = ops.mlstm_chunk(*(_torch(a, dtype) for a in (q, k, v)),
+                          _torch(ip), _torch(fp), *state)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(jh), **_tol(dtype))
+    for name, t in zip("Cnm", state):
+        np.testing.assert_allclose(t.numpy(), np.asarray(jst[name]), **TOL)
+
+
+def _mamba_inputs(seed, Bt, T, E, N):
+    """The JAX kernel test's distributions."""
+    u, dt, A, B, C = _normal(seed, (Bt, T, E), (Bt, T, E), (E, N),
+                             (Bt, T, N), (Bt, T, N))
+    softplus = np.log1p(np.exp(dt))
+    return (u * 0.5, (softplus * 0.1).astype(np.float32), -np.abs(A),
+            B * 0.3, C * 0.3, np.ones(E, np.float32))
+
+
+@pytest.mark.parametrize("Bt,T,E,N,chunk", [
+    (1, 32, 16, 4, 8), (2, 64, 32, 8, 16), (1, 48, 8, 16, 12)])
+def test_mamba_plain_matches_jax_kernel(Bt, T, E, N, chunk):
+    """From h = 0 the plain version computes what the TPU kernel computes
+    (at ``tests/test_kernels.py``'s shapes), and leaves the final state
+    in place."""
+    args = _mamba_inputs(14, Bt, T, E, N)
+    want = jops.mamba_scan(*(_jax(a) for a in args), impl="interpret",
+                           chunk=chunk)
+    h = torch.zeros(Bt, E, N)
+    got = ops.mamba_scan(*(_torch(a) for a in args), h)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    _, jh = jax_selective_scan(*(_jax(a) for a in args))
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bt,T,E,N", [(2, 11, 24, 8), (3, 1, 16, 16),
+                                      (1, 40, 8, 4)])
+def test_mamba_plain_from_state_matches_jax_scan(Bt, T, E, N, dtype):
+    """From a non-zero state (T = 1 is one decode step), y and the final
+    h equal the JAX package's ``selective_scan``, with u, B and C in the
+    model's dtype and dt, A, D in float32; y comes back in u's dtype."""
+    u, dt, A, B, C, D = _mamba_inputs(15, Bt, T, E, N)
+    (h0,) = _normal(16, (Bt, E, N))
+    jy, jh = jax_selective_scan(_jax(u, dtype), _jax(dt), _jax(A),
+                                _jax(B, dtype), _jax(C, dtype), _jax(D),
+                                h0=_jax(h0))
+    h = _torch(h0)
+    got = ops.mamba_scan(_torch(u, dtype), _torch(dt), _torch(A),
+                         _torch(B, dtype), _torch(C, dtype), _torch(D), h)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(jy), **_tol(dtype))
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
+
+
+def test_mamba_kernel_takes_column_slices_of_one_projection():
+    """B and C come to the kernel as column slices of the model's
+    x_proj output, without a copy: the wrapper reads their row stride."""
+    proj = torch.zeros(2, 5, 40)
+    assert tmamba._row_stride(proj[..., 8:24]) == 40
+    assert tmamba._row_stride(proj[:, :1, 8:24]) == 200
+    assert tmamba._row_stride(proj.contiguous()) == 40
+    assert tmamba._row_stride(proj[..., ::2]) is None
+    assert tmamba._row_stride(proj[:, ::2]) is None
+
+
+# ---------------------------------------------------------------------------
 # Dispatch rules and launch counters
 # ---------------------------------------------------------------------------
 def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
@@ -208,6 +329,10 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
                          torch.tensor([8], dtype=torch.int32))
     ops.fused_rmsnorm(_torch(x), torch.ones(8), residual=_torch(x))
     ops.swiglu(_torch(x), _torch(x))
+    ops.mlstm_chunk(*(_torch(a) for a in _mlstm_inputs(6, 1, 3, 2, 8)),
+                    *(_torch(a) for a in _mlstm_state(1, 2, 8, 8)))
+    ops.mamba_scan(*(_torch(a) for a in _mamba_inputs(6, 1, 3, 8, 4)),
+                   torch.zeros(1, 8, 4))
     assert ops.launch_counts() == NO_LAUNCHES
     assert ops.specialization_count() == 0
 
@@ -228,6 +353,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         trms.fused_rmsnorm(t, torch.ones(16))
     with pytest.raises(ValueError, match="CUDA"):
         tswiglu.swiglu(t, t)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmlstm.mlstm_chunk(*(_torch(a) for a in _mlstm_inputs(6, 1, 3, 2, 8)),
+                           *(_torch(a) for a in _mlstm_state(1, 2, 8, 8)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmamba.mamba_scan(*(_torch(a) for a in _mamba_inputs(6, 1, 3, 8, 4)),
+                          torch.zeros(1, 8, 4))
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -238,7 +369,9 @@ def test_plain_versions_live_beside_their_kernels():
                          "fused_groupnorm": ref.groupnorm_silu_ref,
                          "decode_attention": ref.decode_attention_ref,
                          "fused_rmsnorm": ref.rmsnorm_ref,
-                         "swiglu": ref.swiglu_ref}
+                         "swiglu": ref.swiglu_ref,
+                         "mlstm_chunk": ref.mlstm_chunk_ref,
+                         "mamba_scan": ref.mamba_scan_ref}
     assert ops.PLAIN.keys() == ops.KERNELS.keys()
 
 
@@ -247,12 +380,13 @@ def test_kernel_modules_import_without_triton_or_nvcc():
             "sys.modules['jax'] = None\n"
             "from repro_torch.kernels import ops, fused_groupnorm, "
             "flash_attention, build, decode_attention, fused_rmsnorm, "
-            "swiglu\n"
+            "swiglu, mlstm_chunk, mamba_scan\n"
             f"assert ops.launch_counts() == {NO_LAUNCHES!r}\n"
             "assert fused_groupnorm.tl is None and "
             "flash_attention._FN is None\n"
             "assert fused_rmsnorm.tl is None and swiglu.tl is None and "
-            "decode_attention._FN is None\n")
+            "decode_attention._FN is None\n"
+            "assert mlstm_chunk._FN is None and mamba_scan._FN is None\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env={"PYTHONPATH": str(REPO / "src"),
                               "PATH": "/nonexistent"},
@@ -279,13 +413,14 @@ def test_rmsnorm_launch_config_covers_path_widths():
 def test_build_targets_hopper_and_keys_on_source():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    for name in ("flash_attention", "decode_attention"):
+    names = ("flash_attention", "decode_attention", "mlstm_chunk",
+             "mamba_scan")
+    for name in names:
         p = build.library_path(name)
         assert p.parent == build.BUILD_DIR and p.suffix == ".so"
         assert p == build.library_path(name)   # stable name
         assert (build.CSRC / f"{name}.cu").is_file()
-    assert build.library_path("flash_attention") != \
-        build.library_path("decode_attention")
+    assert len({build.library_path(name) for name in names}) == len(names)
 
 
 def test_kernel_impl_registry():

@@ -244,8 +244,8 @@ def test_shapes_and_cache_len_match_jax(shape):
 
 
 def test_unregistered_arch_is_refused():
-    with pytest.raises(KeyError, match="jamba"):
-        configs.get_config("jamba-v0.1-52b")
+    with pytest.raises(KeyError, match="deepseek"):
+        configs.get_config("deepseek-v3-671b")
 
 
 def test_lm_converter_never_takes_the_conv_rule():
@@ -291,13 +291,12 @@ def test_forward_refuses_what_it_does_not_run():
         forward(tp, tcfg, toks, mode="sample")
     with pytest.raises(ValueError, match="cache"):
         forward(tp, tcfg, toks, mode="prefill")
-    moe = dataclasses.replace(tcfg, period_pattern=(("attn", "moe"),))
+    mla = dataclasses.replace(tcfg, period_pattern=(("mla", "mlp"),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        count_params(moe)
-    with pytest.raises(NotImplementedError, match="mixer"):
-        init_cache(dataclasses.replace(tcfg, period_pattern=(("mamba",
-                                                               None),)),
-                   1, 4, "cpu")
+        count_params(mla)
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        forward(tp, dataclasses.replace(tcfg, rope="mrope"), toks,
+                mode="train")
 
 
 def test_lm_entry_points_default_to_cuda(monkeypatch):
