@@ -8,10 +8,15 @@ Phases, each of which fails the run if it fails:
 
 1. Header: the card's name and power limit (nvidia-smi), then the
    kernels' build from the repository's sources (nvcc for the CUDA C++
-   flash attention, decode attention, the mLSTM and the selective scan,
-   one process each, in parallel;
-   Triton compiles the GroupNorm, RMSNorm and SwiGLU kernels at first
-   use).
+   flash attention (two kernels: CUDA cores, and tensor cores for bf16 at
+   head dims 64 and 128), decode attention, the mLSTM and the selective
+   scan, one process each, in parallel; Triton compiles the GroupNorm,
+   RMSNorm and SwiGLU kernels at first use). Each CUDA kernel's ptxas
+   report (registers, spills) and, where the toolkit has ``cuobjdump``,
+   its SASS's count of tensor-core (``HGMMA``, ``HMMA``) and asynchronous
+   copy (``UTMALDG``, ``LDGSTS``) instructions; the tensor-core flash
+   kernel must hold ``HGMMA`` and ``UTMALDG``, decode attention
+   ``LDGSTS``.
 
 Diffusion path (slice 1):
 
@@ -68,7 +73,9 @@ without RoPE, MoE), each after the previous model's tensors are freed:
 10. The new kernel against its plain version at the recorded shapes,
     held in float32 and in the path's dtypes, timed in the latter
     (``cuda_ms``), beside its bound; no single PyTorch call computes
-    either recurrence, so no library time.
+    either recurrence, so no library time. Jamba's flash and decode
+    attention calls (KH 8, G 4) are held and timed there as Yi-9B's are
+    in 6.
 11. The served run, as in 7: 4 prompts of 512 tokens, 32 greedy decode
     steps (Jamba's attention cache 1024 rows), launch counters zeroed
     just before and read just after and equal to the path's; prefill
@@ -77,8 +84,14 @@ without RoPE, MoE), each after the previous model's tensors are freed:
 
 12. The wall time and the card's line again, one JSON line listing
     every ported kernel, with its launches by path (diffusion, lm,
-    xlstm, jamba), then, last, the result line
+    xlstm, jamba) and, for flash attention, its two routes (``cuda_core``
+    over one UNet forward, ``wgmma`` over one Yi-9B prefill) with their
+    times and launches; then, last, the result line
     ``{"ok": true, "device": {...}}``.
+
+Every served run also checks flash attention's launches by route: the
+diffusion path's all on ``cuda_core`` (float32), the LM paths' all on
+``wgmma`` (bfloat16, head dim 128).
 
 Exits non-zero, printing no result, without CUDA or without the
 repository's ``src/repro_torch`` beside it. Imports nothing of JAX.
@@ -112,6 +125,11 @@ BUCKETS = (1, 2, 4, 8)
 SERVE_SIZES = (1, 3, 8)
 PROMPT_LEN = 8
 DEV = "cuda"
+CUDA_SOURCES = ("flash_attention", "flash_attention_tc", "decode_attention",
+                "mlstm_chunk", "mamba_scan")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
+SASS_NEEDS = {"flash_attention_tc": ("HGMMA", "UTMALDG"),
+              "decode_attention": ("HMMA", "LDGSTS")}
 # kernel calls per forward on the full-width path
 PATH_GN = {"unet": 41, "disc": 22}      # 35 of the UNet's with SiLU
 PATH_FA = {"unet": 6, "disc": 0}
@@ -256,26 +274,70 @@ def header_and_build(torch):
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import fused_groupnorm as tgn
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention", "decode_attention",
-                        "mlstm_chunk", "mamba_scan"])
+    libs = build.build(CUDA_SOURCES)
     t_nvcc = time.perf_counter() - t0
-    ptxas = [f"{lib.name.split('-')[0]}: {ln.strip()}" for lib in libs
-             for ln in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_report(libs)
     for ln in ptxas:
         log(f"ptxas: {ln}")
+    sass = sass_counts(libs)
     t0 = time.perf_counter()
     x = torch.randn(2, 8, 8, 32, device=DEV)
     ops.fused_groupnorm(x, torch.ones(32, device=DEV),
                         torch.zeros(32, device=DEV), groups=8)
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    log(f"build: nvcc of the four CUDA sources in parallel "
+    log(f"build: nvcc of the {len(CUDA_SOURCES)} CUDA sources in parallel "
         f"{t_nvcc:.3f} s; triton first fused_groupnorm compile "
         f"{t_triton:.3f} s (specialisations so far "
         f"{len(tgn.fused_groupnorm.specializations)})")
     return {"card": card, "nvcc_s": t_nvcc, "triton_first_s": t_triton,
-            "ptxas": ptxas}
+            "ptxas": ptxas, "sass": sass}
+
+
+def ptxas_report(libs):
+    """One line per kernel instantiation of each library's ptxas log:
+    its (mangled) entry name, registers, shared memory and spills."""
+    import re
+    rows = []
+    for lib in libs:
+        fn, spill = None, ""
+        for ln in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                fn = m.group(1)
+            elif "spill" in ln:
+                spill = ln.strip()
+            elif "registers" in ln and fn:
+                rows.append(f"{lib.name.split('-')[0]}: {fn}: "
+                            f"{ln.split(':', 1)[-1].strip()}; {spill}")
+    return rows
+
+
+def sass_counts(libs):
+    """Per library, the count of tensor-core and asynchronous-copy
+    instructions in its SASS (``cuobjdump -sass``); fails where the
+    tensor-core flash kernel lacks HGMMA or TMA loads, or decode
+    attention lacks cp.async. None where the toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or str(
+        Path(build.nvcc()).with_name("cuobjdump"))
+    if not Path(tool).is_file():
+        log("sass: no cuobjdump in the toolkit; not checked")
+        return None
+    out = {}
+    for lib in libs:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120).stdout
+        name = lib.name.split("-")[0]
+        out[name] = {op: text.count(op) for op in SASS_OPS}
+        log(f"sass {name}: " + ", ".join(f"{op} {n}" for op, n in
+                                         out[name].items()))
+    for name, ops_ in SASS_NEEDS.items():
+        for op in ops_:
+            if not out[name][op]:
+                fail(f"{name}: no {op} in its SASS")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -615,8 +677,26 @@ def serve_slice(torch, np, full_cfg, dcfg):
         f"{want}, total {sum(want.values())}); serve wall {serve_s:.3f} s")
     if counts != want:
         fail(f"launch counts {counts} != expected {want}")
-    return counts, {"e_b": eb, "served": served,
-                    "serve_wall_s": serve_s}, casc
+    # the UNet's attention: q (b, 256, 4, 128), head dim 128
+    routes = check_routes(torch, "diffusion", full_cfg.dtype, 128,
+                          counts["flash_attention"])
+    return counts, {"e_b": eb, "served": served, "serve_wall_s": serve_s,
+                    "flash_routes": routes}, casc
+
+
+def check_routes(torch, what, dtype, head_dim, n_flash):
+    """Flash attention's launches by route since the counters were last
+    zeroed: all ``n_flash`` on the route of ``dtype`` at ``head_dim``."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ops
+    routes = ops.route_counts()
+    want = dict.fromkeys(tflash.ROUTES, 0)
+    want[tflash.route(getattr(torch, dtype), head_dim)] = n_flash
+    log(f"flash attention launches by route over the {what} run: {routes} "
+        f"(expected {want})")
+    if routes != want:
+        fail(f"{what}: flash attention routes {routes} != expected {want}")
+    return routes
 
 
 def trace_call(torch, fn):
@@ -882,6 +962,112 @@ def _decode_inputs(torch, g, qs, ks, valid, dt):
     return q, k, v, vl, nbytes, 4.0 * live * H * D
 
 
+def _hold(torch, name, got, want, dtype, tol=None):
+    """Hold a kernel's output (or tuple of outputs) against its plain
+    version's; returns (max |error|, tolerance)."""
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if isinstance(got, tuple) \
+        else [(got, want)]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    tol = tol or (FLASH_TOL if "attention" in name else EW_TOL)[dtype]
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, **tol)
+    return err, tol
+
+
+def _report(name, row, what):
+    lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    log(f"{name} {what}: max|err| {row['max_abs_err']:.3e}; kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+        f"{lib} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+def _lm_case(torch, g, kind, shape, extra, dt, timed):
+    """(kernel name, kernel call, plain call, library call or None, bytes
+    and flops of the function) for one recorded LM kernel call, on fresh
+    inputs; the attention library calls are probed only for a row that
+    is ``timed``."""
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import fused_rmsnorm as trms
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swiglu as tsw
+    F = torch.nn.functional
+    el = torch.tensor([], dtype=dt).element_size()
+    if kind in ("rmsnorm", "rmsnorm_res"):
+        D = shape[-1]
+        x = (torch.randn(shape, generator=g, device=DEV) * 3).to(dt)
+        r = torch.randn(shape, generator=g, device=DEV).to(dt) \
+            if kind == "rmsnorm_res" else None
+        s = torch.rand(D, generator=g, device=DEV) + 0.5
+        sl = s.to(dt)
+        return ("fused_rmsnorm",
+                lambda: trms.fused_rmsnorm(x, s, residual=r),
+                lambda: ref.rmsnorm_ref(x, s, residual=r),
+                lambda: F.rms_norm(x if r is None else x + r, (D,), sl, 1e-5),
+                (2 if r is None else 4) * x.numel() * el + 4 * D,
+                (4 if r is None else 5) * x.numel())
+    if kind == "swiglu":
+        gate = (torch.randn(shape, generator=g, device=DEV) * 4).to(dt)
+        up = torch.randn(shape, generator=g, device=DEV).to(dt)
+        return ("swiglu", lambda: tsw.swiglu(gate, up),
+                lambda: ref.swiglu_ref(gate, up),
+                lambda: F.silu(gate) * up,
+                3 * gate.numel() * el, 5 * gate.numel())
+    if kind == "flash":
+        (qs, ks), causal = shape, extra
+        q = torch.randn(qs, generator=g, device=DEV).to(dt)
+        k = torch.randn(ks, generator=g, device=DEV).to(dt)
+        v = torch.randn(ks, generator=g, device=DEV).to(dt)
+        B, Sq, H, D = qs
+        return ("flash_attention",
+                lambda: tflash.flash_attention(q, k, v, causal=causal),
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                _sdpa(torch, q, k, v, causal) if timed else None,
+                (2 * q.numel() + 2 * k.numel()) * el,
+                4.0 * B * H * Sq * (Sq + 1) / 2 * D)
+    (qs, ks), valid = shape, extra
+    q, k, v, vl, nbytes, flops = _decode_inputs(torch, g, qs, ks, valid, dt)
+    top = max(valid)
+    return ("decode_attention",
+            lambda: tdec.decode_attention(q, k, v, vl),
+            lambda: ref.decode_attention_ref(q, k, v, vl),
+            _sdpa(torch, q[:, None], k[:, :top], v[:, :top], False)
+            if timed and len(set(valid)) == 1 else None, nbytes, flops)
+
+
+def hold_lm_calls(torch, g, calls, kinds, what=""):
+    """Each recorded LM kernel call of the given kinds against its plain
+    version, once per distinct shape: in bfloat16 (the path's dtype;
+    held and timed) and float32 (held only). Returns the bf16 rows by
+    kernel name and the worst float32 error by kernel name."""
+    from repro_torch.kernels import flash_attention as tflash
+    mult = Counter((kind, shape, extra) for kind, shape, _, extra in calls
+                   if kind in kinds)
+    rows, worst = {}, {}
+    for (kind, shape, extra), n in sorted(mult.items(), key=str):
+        for dtype in ("bfloat16", "float32"):
+            name, kernel, plain, library, nbytes, flops = _lm_case(
+                torch, g, kind, shape, extra, getattr(torch, dtype),
+                dtype == "bfloat16")
+            err, tol = _hold(torch, name, kernel(), plain(), dtype)
+            label = f"{what}{kind} {shape} {extra or ''} {dtype} x{n} " \
+                    f"(tol {tol})"
+            if dtype == "float32":
+                worst[name] = max(worst.get(name, 0.0), err)
+                log(f"{name} {label}: max|err| {err:.3e}")
+                continue
+            row = {"kind": kind, "shape": shape, "extra": extra,
+                   "dtype": dtype, "per_path": n, "max_abs_err": err,
+                   "route": tflash.route(getattr(torch, dtype), shape[0][-1])
+                   if kind == "flash" else None,
+                   **_time_rows(torch, kernel, plain, library, nbytes,
+                                flops, dtype)}
+            rows.setdefault(name, []).append(row)
+            _report(name, row, label)
+    return rows, worst
+
+
 def check_lm_kernels(torch, calls):
     """Each LM kernel against its plain version at the path's shapes, in
     bfloat16 (the path's dtype; timed) and float32 (held only); decode
@@ -891,103 +1077,13 @@ def check_lm_kernels(torch, calls):
     bf16) and the per-shape rows."""
     from repro_torch.configs import SHAPES
     from repro_torch.kernels import decode_attention as tdec
-    from repro_torch.kernels import flash_attention as tflash
-    from repro_torch.kernels import fused_rmsnorm as trms
     from repro_torch.kernels import ref
-    from repro_torch.kernels import swiglu as tsw
     from repro_torch.launch.steps import cache_len
-    F = torch.nn.functional
     g = torch.Generator(device=DEV).manual_seed(13)
-    mult = Counter((kind, shape, extra) for kind, shape, _, extra in calls)
-    rows = {"fused_rmsnorm": [], "swiglu": [], "decode_attention": [],
-            "flash_attention": []}
-    worst = dict.fromkeys(rows, 0.0)
-
-    def hold(name, got, want, dtype, tol=None):
-        torch.cuda.synchronize()
-        pairs = list(zip(got, want)) if isinstance(got, tuple) \
-            else [(got, want)]
-        err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in pairs)
-        tol = tol or (FLASH_TOL if "attention" in name else EW_TOL)[dtype]
-        for a, b in pairs:
-            torch.testing.assert_close(a, b, **tol)
-        if dtype == "float32":
-            worst[name] = max(worst[name], err)
-        return err, tol
-
-    def report(name, row, what):
-        lib = "-" if row["library_ms"] is None \
-            else f"{row['library_ms']:.4f}"
-        log(f"{name} {what}: max|err| {row['max_abs_err']:.3e}; kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-            f"{lib} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-
-    def case(kind, shape, extra, dt, timed):
-        """(kernel name, kernel call, plain call, library call or None,
-        bytes and flops of the function) on fresh inputs; the attention
-        library calls are probed only for a row that is ``timed``."""
-        el = torch.tensor([], dtype=dt).element_size()
-        if kind in ("rmsnorm", "rmsnorm_res"):
-            D = shape[-1]
-            x = (torch.randn(shape, generator=g, device=DEV) * 3).to(dt)
-            r = torch.randn(shape, generator=g, device=DEV).to(dt) \
-                if kind == "rmsnorm_res" else None
-            s = torch.rand(D, generator=g, device=DEV) + 0.5
-            sl = s.to(dt)
-            return ("fused_rmsnorm",
-                    lambda: trms.fused_rmsnorm(x, s, residual=r),
-                    lambda: ref.rmsnorm_ref(x, s, residual=r),
-                    lambda: F.rms_norm(x if r is None else x + r, (D,), sl,
-                                       1e-5),
-                    (2 if r is None else 4) * x.numel() * el + 4 * D,
-                    (4 if r is None else 5) * x.numel())
-        if kind == "swiglu":
-            gate = (torch.randn(shape, generator=g, device=DEV) * 4).to(dt)
-            up = torch.randn(shape, generator=g, device=DEV).to(dt)
-            return ("swiglu", lambda: tsw.swiglu(gate, up),
-                    lambda: ref.swiglu_ref(gate, up),
-                    lambda: F.silu(gate) * up,
-                    3 * gate.numel() * el, 5 * gate.numel())
-        if kind == "flash":
-            (qs, ks), causal = shape, extra
-            q = torch.randn(qs, generator=g, device=DEV).to(dt)
-            k = torch.randn(ks, generator=g, device=DEV).to(dt)
-            v = torch.randn(ks, generator=g, device=DEV).to(dt)
-            B, Sq, H, D = qs
-            return ("flash_attention",
-                    lambda: tflash.flash_attention(q, k, v, causal=causal),
-                    lambda: ref.flash_attention_ref(q, k, v, causal=causal),
-                    _sdpa(torch, q, k, v, causal) if timed else None,
-                    (2 * q.numel() + 2 * k.numel()) * el,
-                    4.0 * B * H * Sq * (Sq + 1) / 2 * D)
-        (qs, ks), valid = shape, extra
-        q, k, v, vl, nbytes, flops = _decode_inputs(torch, g, qs, ks, valid,
-                                                    dt)
-        top = max(valid)
-        return ("decode_attention",
-                lambda: tdec.decode_attention(q, k, v, vl),
-                lambda: ref.decode_attention_ref(q, k, v, vl),
-                _sdpa(torch, q[:, None], k[:, :top], v[:, :top], False)
-                if timed and len(set(valid)) == 1 else None, nbytes, flops)
-
-    # bfloat16, the path's dtype, held and timed; float32 held only
-    for (kind, shape, extra), n in sorted(mult.items(), key=str):
-        for dtype in ("bfloat16", "float32"):
-            name, kernel, plain, library, nbytes, flops = case(
-                kind, shape, extra, getattr(torch, dtype),
-                dtype == "bfloat16")
-            err, tol = hold(name, kernel(), plain(), dtype)
-            what = f"{kind} {shape} {extra or ''} {dtype} x{n} (tol {tol})"
-            if dtype == "float32":
-                log(f"{name} {what}: max|err| {err:.3e}")
-                continue
-            row = {"kind": kind, "shape": shape, "extra": extra,
-                   "dtype": dtype, "per_path": n, "max_abs_err": err,
-                   **_time_rows(torch, kernel, plain, library, nbytes,
-                                flops, dtype)}
-            rows[name].append(row)
-            report(name, row, what)
+    # path_calls has checked that every kind below was recorded
+    rows, worst = hold_lm_calls(
+        torch, g, calls, ("rmsnorm", "rmsnorm_res", "swiglu", "flash",
+                          "decode"))
     # one layer of decode_32k: B 128, 32768 tokens of history plus the
     # one being written, in a cache of cache_len(decode_32k) rows
     shp = SHAPES["decode_32k"]
@@ -1000,8 +1096,9 @@ def check_lm_kernels(torch, calls):
     want = ref.decode_attention_ref(q, k, v, vl)
     tol = dict(atol=DECODE_32K_REL_ATOL * want.abs().max().item(),
                rtol=FLASH_TOL["bfloat16"]["rtol"])
-    err, tol = hold("decode_attention", tdec.decode_attention(q, k, v, vl),
-                    want, "bfloat16", tol)
+    err, tol = _hold(torch, "decode_attention",
+                     tdec.decode_attention(q, k, v, vl), want, "bfloat16",
+                     tol)
     del want
     t = _time_rows(torch, lambda: tdec.decode_attention(q, k, v, vl),
                    lambda: ref.decode_attention_ref(q, k, v, vl),
@@ -1012,7 +1109,7 @@ def check_lm_kernels(torch, calls):
            "dtype": "bfloat16", "per_path": 0, "max_abs_err": err,
            "tol": tol, "gb_per_s": nbytes / t["ms"] / 1e6, **t}
     rows["decode_attention"].append(row)
-    report("decode_attention", row, f"decode_32k one layer q {(B, 32, 128)}"
+    _report("decode_attention", row, f"decode_32k one layer q {(B, 32, 128)}"
            f" k/v {(B, T, 4, 128)} valid {valid} bfloat16 (tol {tol}, "
            f"{row['gb_per_s']:.0f} GB/s)")
     del q, k, v
@@ -1021,11 +1118,18 @@ def check_lm_kernels(torch, calls):
     source = {"decode_attention": (
                   "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
                   "src/repro/kernels/decode_attention.py:62"),
+              # its wgmma route; main() folds it into flash's entry
+              "flash_attention": (
+                  "cuda", "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+                  "src/repro/kernels/flash_attention.py:82"),
               "fused_rmsnorm": ("triton",
                                 "src/repro_torch/kernels/fused_rmsnorm.py",
                                 "src/repro/kernels/fused_rmsnorm.py:30"),
               "swiglu": ("triton", "src/repro_torch/kernels/swiglu.py",
                          "src/repro/kernels/swiglu.py:17")}
+    # the wgmma route takes the bf16 calls only: its error is theirs
+    worst["flash_attention"] = max(r["max_abs_err"]
+                                   for r in rows["flash_attention"])
     entries = {}
     for name, (route, src, replaces) in source.items():
         path = [r for r in rows[name] if r["dtype"] == "bfloat16"
@@ -1119,6 +1223,8 @@ def serve_lm(torch, cfg, params):
     log(f"launches over the {cfg.name} slice: {counts} (expected {want})")
     if counts != want:
         fail(f"{cfg.name} launch counts {counts} != expected {want}")
+    routes = check_routes(torch, cfg.name, cfg.dtype, cfg.resolved_head_dim,
+                          counts["flash_attention"])
     if not bool(torch.stack(finite).all()) or logits.shape != (
             LM_BATCH, cfg.vocab_size):
         fail(f"{cfg.name} slice: logits not finite or of the wrong shape")
@@ -1188,7 +1294,7 @@ def serve_lm(torch, cfg, params):
                     "state_bytes": state_bytes,
                     "cache_len": T,
                     "generated": gen.tolist(), "profile_decode": prof,
-                    "profile_prefill": prof_prefill}
+                    "profile_prefill": prof_prefill, "flash_routes": routes}
 
 
 def lm_phase(torch):
@@ -1395,6 +1501,12 @@ def recurrent_phase(torch, arch):
         f"{arch} full width {cfg.num_layers} layers bfloat16")
     path_calls(calls, cfg)
     entry, details["kernel"] = check_recurrent_kernel(torch, calls, arch)
+    if jamba:
+        # its attention layers' flash and decode calls (KH 8, G 4), held
+        # and timed as Yi-9B's are
+        details["attention"], _ = hold_lm_calls(
+            torch, torch.Generator(device=DEV).manual_seed(83), calls,
+            ("flash", "decode"), f"{arch} ")
     counts, details["slice"] = serve_lm(torch, cfg, params)
     del params
     gc.collect()
@@ -1446,6 +1558,19 @@ def main(argv=None) -> int:
     for arch in REC_ARCHS:
         entry, rec_counts[arch], details[arch] = recurrent_phase(torch, arch)
         rec_entries.append(entry)
+    # flash attention's two routes: the diffusion path's float32 calls on
+    # CUDA cores, the LM paths' bf16 calls on tensor cores
+    routes = {"diffusion": details["slice"]["flash_routes"],
+              "lm": details["lm"]["slice"]["flash_routes"],
+              **{a: details[a]["slice"]["flash_routes"] for a in REC_ARCHS}}
+    lm_flash = lm_entries.pop("flash_attention")
+    fa_entry["routes"] = {}
+    for way, e in (("cuda_core", fa_entry), ("wgmma", lm_flash)):
+        fa_entry["routes"][way] = {
+            **{k: e[k] for k in ("source", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "per")},
+            "launches": sum(r[way] for r in routes.values())}
     kernels = []
     for e in (fa_entry, gn_entry, *lm_entries.values(), *rec_entries):
         by_path = {"diffusion": counts[e["name"]], "lm": lm_counts[e["name"]],
@@ -1456,7 +1581,7 @@ def main(argv=None) -> int:
         kernels.append({k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per",
-            "launches_by_path")})
+            "launches_by_path", "routes") if k in e})
     details["wall_s"] = time.perf_counter() - t_start
     if args.out:
         out = Path(args.out)

@@ -7,11 +7,12 @@ CUDA the TF32 shortcuts of cuBLAS and cuDNN are switched off.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+_SMS: Dict[int, int] = {}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -32,3 +33,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """The CUDA device's SM count, asked once per device (the kernels
+    size their grids from it on every launch)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n

@@ -3,10 +3,10 @@ with a plain C interface, loaded through ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so``
 under the repository root (a directory ``.gitignore`` lists), at first
-use, from the sources in the repository only. The hash covers the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Sources missing a library are compiled in parallel,
-one nvcc process each.
+use, from the sources in the repository only. The hash covers the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is. Sources
+missing a library are compiled in parallel, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -44,8 +44,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library's path, keyed by its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

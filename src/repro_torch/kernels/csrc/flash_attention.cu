@@ -24,14 +24,18 @@
 // 67 TFLOP/s fp32 CUDA-core peak; 17.0 MB of q, k, v and o, 5.1 us at
 // 3.35 TB/s. So operations bound it. This first version runs on CUDA
 // cores and reads every operand from shared memory once per FMA pair,
-// so shared-memory bandwidth, not the FMA rate, limits it; tensor-core
-// (wgmma) tiles are later work.
+// so shared-memory bandwidth, not the FMA rate, limits it. bfloat16 at
+// head dims 64 and 128 (every LM prefill call) takes the tensor-core
+// kernel of flash_attention_tc.cu instead; this one keeps float32 (the
+// UNet) and bf16 at head dims 16 and 32.
 //
 // Plain C interface, built by nvcc into a shared library and called
 // through ctypes (repro_torch/kernels/flash_attention.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -194,9 +198,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KH, int kv_len, int causal, float scale,
            cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  static unsigned int smem_set = 0;
+  cudaError_t err =
+      set_smem_once((const void*)flash_fwd<T, D>, (int)bytes, &smem_set);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd<T, D><<<grid, THREADS, bytes, stream>>>(

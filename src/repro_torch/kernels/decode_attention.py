@@ -12,24 +12,52 @@ PyTorch's current stream. Its plain PyTorch version is
 Bound on an H100 SXM: bytes, the live rows of K and V read once. One
 layer of decode_32k (B 128, 32769 live rows, KH 4, D 128, bf16) is
 8.6 GB, 2.56 ms at 3.35 TB/s; the served decode shape (B 4, <= 544 live
-rows of T 1024) is 4.5 MB, 1.3 us, where the launch cost bounds it. See
-the source for the design.
+rows of T 1024) is 4.5 MB, 1.3 us, where the launch cost bounds it. The
+kernel splits the cache of each (batch, KV head) across the blocks of a
+thread-block cluster and combines their partials on chip, in one launch;
+``plan_splits`` (pure Python, tested on the CPU) picks the split from T,
+B * KH and the card's SM count, never from ``valid_len``, which stays on
+the device. See the source for the design.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
+# the kernel's constants (csrc/decode_attention.cu): split sizes are
+# multiples of TILE_ROWS (4 warps x 16 rows); a split is one block of a
+# portable cluster of at most MAX_SPLITS
+TILE_ROWS = 64
+MAX_SPLITS = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
-__all__ = ["decode_attention", "HEAD_DIMS"]
+__all__ = ["decode_attention", "plan_splits", "HEAD_DIMS"]
+
+
+def plan_splits(T: int, pairs: int, sms: int) -> Tuple[int, int]:
+    """(splits, rows): the blocks that share one (batch, KV head) and the
+    cache rows each takes, split s owning rows [s * rows, (s + 1) * rows).
+    ``pairs`` = B * KH. Splits fill only the SMs that one block per pair
+    leaves idle, so the grid stays within one block an SM: a cluster's
+    blocks are scheduled together, and clusters past the first wave wait
+    for whole clusters of the first to finish (on the H100, 32 pairs x 8
+    splits ran 1.4x slower than x 4). At most MAX_SPLITS and at most one
+    per TILE_ROWS rows; ``rows`` a multiple of TILE_ROWS, and no split
+    starts at or past T. Depends on shapes and the card only, never on
+    ``valid_len``."""
+    tiles = max(1, math.ceil(T / TILE_ROWS))
+    splits = max(1, min(MAX_SPLITS, tiles, sms // max(1, pairs)))
+    rows = math.ceil(tiles / splits) * TILE_ROWS
+    return max(1, math.ceil(T / rows)), rows
 
 
 def _forward():
@@ -37,7 +65,7 @@ def _forward():
     if _FN is None:
         lib = build.load("decode_attention")
         fn = lib.decode_attention_forward
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
@@ -87,11 +115,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return out
     fn, errstr = _forward()
+    splits, rows = plan_splits(T, B * KH, sm_count(q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  valid_len.data_ptr(), out.data_ptr(), B, T, KH, H // KH, D,
-                 1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
+                 splits, rows, 1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError("decode_attention kernel launch failed: "
                            + errstr(err).decode())

@@ -1,18 +1,26 @@
-"""Flash attention on Hopper: the wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention on Hopper: the wrapper of ``csrc/flash_attention.cu``
+and ``csrc/flash_attention_tc.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention`` (body ``_flash_kernel``). The CUDA C++ kernel is built
-by nvcc for ``sm_90a`` into a shared library with a plain C interface
-(``kernels/build.py``) and called through ctypes on PyTorch's current
-stream. Its plain PyTorch version is ``kernels/ref.flash_attention_ref``
-(``ops.PLAIN``).
+flash_attention`` (body ``_flash_kernel``). Two CUDA C++ kernels, each
+built by nvcc for ``sm_90a`` into a shared library with a plain C
+interface (``kernels/build.py``) and called through ctypes on PyTorch's
+current stream; ``route`` picks one from the dtype and head dim before
+the launch. bfloat16 at head dims 64 and 128 (every LM prefill call)
+takes ``wgmma``, the tensor-core kernel fed by TMA; float32 (the UNet)
+and bf16 at head dims 16 and 32 take ``cuda_core``. Launches are counted
+in total (``flash_attention.launches``) and per route
+(``flash_attention.route_launches``). Its plain PyTorch version is
+``kernels/ref.flash_attention_ref`` (``ops.PLAIN``).
 
 Bound on an H100 SXM at the UNet's shape (q (8,256,4,128), k/v
 (8,264,4,128), f32, non-causal): 1.11 GFLOP at the 67 TFLOP/s fp32
 CUDA-core peak, 16.5 us; operations, not bytes (17.0 MB, 5.1 us), bound
-it. The kernel keeps scores, probabilities and the accumulator on chip
-(registers and shared memory) so device memory sees each operand once;
-see the source for its tiling.
+it. At the LM prefill shape (bf16 q (4,512,32,128), k/v (4,512,4,128),
+causal) bytes bound it: 37.7 MB, 11.3 us at 3.35 TB/s, against 8.7 us of
+bf16 tensor-core operations. Both kernels keep scores, probabilities and
+the accumulator on chip, so device memory sees each operand once; see
+the sources for their tiling.
 """
 from __future__ import annotations
 
@@ -22,27 +30,54 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
+ROUTES = ("wgmma", "cuda_core")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+_FN_TC = None
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "route", "HEAD_DIMS", "ROUTES"]
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a call takes, from its dtype and head dim alone:
+    ``wgmma`` (tensor cores) for bfloat16 at head dims 64 and 128, else
+    ``cuda_core``."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def _bind(name: str, extra):
+    """``<name>_forward(q, k, v, o, B, Sq, Sk, H, KH, D, kv_len, causal,
+    scale, *extra, stream)`` and its error-string function."""
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_forward")
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, *extra, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
 def _forward():
     global _FN
     if _FN is None:
-        lib = build.load("flash_attention")
-        fn = lib.flash_attention_forward
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.flash_attention_error_string)
+        _FN = _bind("flash_attention", [ctypes.c_int])
     return _FN
+
+
+def _forward_tc():
+    global _FN_TC
+    if _FN_TC is None:
+        _FN_TC = _bind("flash_attention_tc", [ctypes.c_int])
+    return _FN_TC
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,20 +114,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv = Sk if kv_len is None else int(kv_len)
     if not 0 < kv <= Sk:
         raise ValueError(f"kv_len={kv_len} outside (0, {Sk}]")
+    way = route(q.dtype, D)
+    if way == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention kernel: {name} is not "
+                                 "16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    fn, errstr = _forward()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Sk, H, KH, D, kv, int(causal),
-                 1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Sq, Sk, H, KH, D, kv, int(causal), 1.0 / math.sqrt(D))
+        if way == "wgmma":
+            fn, errstr = _forward_tc()
+            err = fn(*args, sm_count(q.device), stream)
+        else:
+            fn, errstr = _forward()
+            err = fn(*args, _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention kernel ({way}) launch failed: "
                            + errstr(err).decode())
     flash_attention.launches += 1
+    flash_attention.route_launches[way] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -118,9 +118,17 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """Flash attention's launches by kernel: ``wgmma`` (bf16 at head
+    dims 64 and 128) and ``cuda_core`` (the rest)."""
+    return dict(_flash.flash_attention.route_launches)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for way in _flash.flash_attention.route_launches:
+        _flash.flash_attention.route_launches[way] = 0
 
 
 def specialization_count() -> int:

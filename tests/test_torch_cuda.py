@@ -76,6 +76,86 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KH, D,
     torch.testing.assert_close(got, want, **FA_TOL[dtype])
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,kv", [
+    (4, 512, 512, 32, 4, 128, True, None),    # Yi-9B prefill, G = 8
+    (4, 512, 512, 32, 8, 128, True, None),    # Jamba prefill, G = 4
+    (2, 200, 200, 4, 4, 64, True, None),      # causal G = 1, ragged tiles
+    (2, 333, 333, 16, 2, 128, True, None),    # causal G = 8, ragged
+    (1, 2049, 2049, 8, 2, 64, True, None),    # Sq = 2049
+    (3, 1, 77, 8, 1, 128, False, None),       # Sq = 1, MQA, Sk < a tile
+    (2, 190, 300, 4, 2, 128, False, 250),     # kv_len < Sk, ragged Sk
+    (2, 300, 300, 8, 8, 64, True, 260),       # causal and kv_len
+])
+def test_flash_wgmma_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D, causal,
+                                          kv):
+    """bfloat16 at head dims 64 and 128 takes the tensor-core kernel and
+    meets the standing bf16 tolerance, P rounded to bf16 included."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = _randn(g, (B, Sq, H, D), cuda, torch.bfloat16)
+    k = _randn(g, (B, Sk, KH, D), cuda, torch.bfloat16)
+    v = _randn(g, (B, Sk, KH, D), cuda, torch.bfloat16)
+    before = dict(tflash.flash_attention.route_launches)
+    got = tflash.flash_attention(q, k, v, causal=causal, kv_len=kv)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.route_launches == {
+        **before, "wgmma": before["wgmma"] + 1}
+    want = ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 128),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 16)])
+def test_flash_cuda_core_route_keeps_the_rest(cuda, dtype, D):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = _randn(g, (2, 70, 4, D), cuda, dtype)
+    k = _randn(g, (2, 90, 2, D), cuda, dtype)
+    before = dict(tflash.flash_attention.route_launches)
+    got = tflash.flash_attention(q, k, k, causal=False)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.route_launches == {
+        **before, "cuda_core": before["cuda_core"] + 1}
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, k,
+                                                            causal=False),
+                               **FA_TOL[dtype])
+
+
+def test_flash_wgmma_repeats_on_cached_tensor_maps(cuda):
+    """The tensor maps are cached by pointer and shape: a second call on
+    the same tensors, and a call on new tensors of the same shape, give
+    the plain version's output."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    shp = (2, 256, 8, 128), (2, 256, 2, 128)
+    for _ in range(2):
+        q = _randn(g, shp[0], cuda, torch.bfloat16)
+        k = _randn(g, shp[1], cuda, torch.bfloat16)
+        v = _randn(g, shp[1], cuda, torch.bfloat16)
+        want = ref.flash_attention_ref(q, k, v)
+        for _ in range(2):
+            torch.testing.assert_close(tflash.flash_attention(q, k, v), want,
+                                       **FA_TOL[torch.bfloat16])
+
+
+def test_flash_wgmma_one_q_against_many_fresh_kv(cuda):
+    """One q, held alive, against 12 fresh k/v pairs: the cached maps
+    wrap (16 slots), so a k or v miss evicts the slot of q's map in the
+    very call that found q there; each call must still read q, k and v
+    through their own maps."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q = _randn(g, (2, 256, 8, 128), cuda, torch.bfloat16)
+    kvs = []
+    for _ in range(12):
+        k = _randn(g, (2, 256, 2, 128), cuda, torch.bfloat16)
+        v = _randn(g, (2, 256, 2, 128), cuda, torch.bfloat16)
+        kvs.append((k, v))       # kept alive: every pointer is new
+        torch.testing.assert_close(tflash.flash_attention(q, k, v),
+                                   ref.flash_attention_ref(q, k, v),
+                                   **FA_TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("shape,groups,act", [
     ((8, 64, 64, 128), 8, True),      # UNet top level
     ((8, 16, 16, 1024), 8, True),     # UNet bottom, widest
@@ -107,6 +187,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tflash.flash_attention(q.transpose(1, 2), q, q)
     with pytest.raises(ValueError, match="kv_len"):
         tflash.flash_attention(q, q, q, kv_len=9)
+    # the TMA route takes 16-byte aligned tensors only
+    flat = torch.zeros(1 + 8 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="contiguous"):
         tgn.fused_groupnorm(torch.zeros(1, 4, 4, 8, device=cuda)
                             .transpose(1, 2), torch.ones(8, device=cuda),
@@ -165,6 +250,7 @@ def test_unet_fused_matches_unfused_on_cuda(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KH,D,T,valid", [
     (4, 32, 4, 128, 1024, (513, 520, 530, 544)),   # Yi-9B served decode
+    (4, 32, 8, 128, 1024, (513, 520, 530, 544)),   # Jamba, KH 8, G 4
     (2, 32, 4, 128, 1000, (1000, 999)),            # T not a multiple of 64
     (3, 6, 1, 64, 190, (1, 64, 65)),               # MQA G = 6, tile edges
     (2, 16, 1, 32, 77, (77, 3)),                   # the largest group
@@ -196,6 +282,60 @@ def test_decode_kernel_valid_len_zero_gives_zeros(cuda):
     assert not got[0].any() and not got[2].any()
     torch.testing.assert_close(got, ref.decode_attention_ref(q, k, k, vl),
                                **FA_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(1, 128), (8, 128), (16, 64)])
+def test_decode_split_kernel_edge_valid_lens(cuda, dtype, G, D):
+    """valid_len 0, 1, 63, 64, 65 and T in one batch, T = 1000 not a
+    multiple of the 64-row tile: the cache is split 8 ways (128 rows a
+    split), so short sequences leave whole blocks of their cluster
+    empty; sequences with no live row get zeros."""
+    B, T, KH = 6, 1000, 2
+    valid = (0, 1, 63, 64, 65, T)
+    assert tdecode.plan_splits(T, B * KH,
+                               torch.cuda.get_device_properties(cuda)
+                               .multi_processor_count)[0] > 1
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q = _randn(g, (B, KH * G, D), cuda, dtype)
+    k = _randn(g, (B, T, KH, D), cuda, dtype)
+    v = _randn(g, (B, T, KH, D), cuda, dtype)
+    # rows at or past valid_len are never read: NaN there changes nothing
+    dead = torch.arange(T, device=cuda)[None, :] >= torch.tensor(
+        valid, device=cuda)[:, None]
+    k[dead], v[dead] = float("nan"), float("nan")
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    before = tdecode.decode_attention.launches
+    got = tdecode.decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert tdecode.decode_attention.launches == before + 1
+    assert torch.isfinite(got).all() and not got[0].any()
+    want = ref.decode_attention_ref(q, k.nan_to_num(), v.nan_to_num(), vl)
+    torch.testing.assert_close(got, want, **FA_TOL[dtype])
+
+
+def test_decode_split_kernel_on_two_streams_at_once(cuda):
+    """Calls queued on two streams at once share no scratch: the splits
+    combine inside each launch's clusters."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    runs = []
+    for valid in ((513, 520, 530, 544), (1, 1000, 64, 0)):
+        q = _randn(g, (4, 32, 128), cuda, torch.bfloat16)
+        k = _randn(g, (4, 1024, 4, 128), cuda, torch.bfloat16)
+        v = _randn(g, (4, 1024, 4, 128), cuda, torch.bfloat16)
+        runs.append((q, k, v, torch.tensor(valid, dtype=torch.int32,
+                                           device=cuda)))
+    wants = [ref.decode_attention_ref(*r) for r in runs]
+    streams = [torch.cuda.Stream(cuda) for _ in runs]
+    torch.cuda.synchronize()
+    got = []
+    for s, r in zip(streams, runs):
+        with torch.cuda.stream(s):
+            got.append([tdecode.decode_attention(*r) for _ in range(8)])
+    torch.cuda.synchronize()
+    for outs, want in zip(got, wants):
+        for o in outs:
+            torch.testing.assert_close(o, want, **FA_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

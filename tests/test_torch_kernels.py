@@ -8,6 +8,7 @@ tolerance (5e-2 for bfloat16, as there). The kernels themselves run only
 on a CUDA card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold
 them against the plain versions there.
 """
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -165,6 +166,111 @@ def test_decode_attention_valid_len_zero_gives_zeros():
                                torch.from_numpy(vl))
     assert not got[0].any()
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def _split_decode(q, k, v, valid_len, splits, rows, cover):
+    """The decode kernel's split arithmetic in plain torch, fp32: split
+    s of each (batch, KV head) takes cache rows [s * rows, (s + 1) *
+    rows) cut at valid_len; inside it warp w takes the 16-row chunks w,
+    w + 4, ... with its own online softmax; the warps' partials merge
+    into the split's, the splits' into the output. ``cover`` (B, T)
+    counts the rows each (batch, KV head 0) read."""
+    B, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, KH, G, D).float()
+    out = torch.zeros(B, KH, G, D)
+
+    def merge(parts):
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        mu = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        w = [torch.exp(p[0] - mu) for p in parts]
+        l = sum(wi * p[1] for wi, p in zip(w, parts))
+        acc = sum(wi[:, None] * p[2] for wi, p in zip(w, parts))
+        return m, l, acc
+    for b in range(B):
+        valid = min(max(int(valid_len[b]), 0), T)
+        for kh in range(KH):
+            splits_parts = []
+            for s in range(splits):
+                r0, r1 = s * rows, min(s * rows + rows, valid)
+                n_chunks = math.ceil((r1 - r0) / 16) if r1 > r0 else 0
+                warps = []
+                for w in range(4):
+                    m = torch.full((G,), float("-inf"))
+                    l, acc = torch.zeros(G), torch.zeros(G, D)
+                    for c in range(w, n_chunks, 4):
+                        idx = torch.arange(r0 + 16 * c,
+                                           min(r0 + 16 * c + 16, r1))
+                        if kh == 0:
+                            cover[b, idx] += 1
+                        sc = qg[b, kh] @ k[b, idx, kh].float().T \
+                            / math.sqrt(D)
+                        m_new = torch.maximum(m, sc.amax(-1))
+                        mu = torch.where(torch.isinf(m_new),
+                                         torch.zeros_like(m_new), m_new)
+                        alpha, p = torch.exp(m - mu), torch.exp(
+                            sc - mu[:, None])
+                        l = l * alpha + p.sum(-1)
+                        acc = acc * alpha[:, None] + p @ v[b, idx, kh].float()
+                        m = m_new
+                    warps.append((m, l, acc))
+                splits_parts.append(merge(warps))
+            _, l, acc = merge(splits_parts)
+            out[b, kh] = acc / l.clamp_min(1e-30)[:, None]
+    return out.reshape(B, H, D)
+
+
+@pytest.mark.parametrize("T,sms", [(200, 132), (200, 1), (1000, 8),
+                                   (1000, 132)])
+def test_decode_split_arithmetic_matches_jax_kernel(T, sms):
+    """The split planner the decode wrapper uses, through a plain
+    emulation of the kernel's partials and their combine, against the
+    JAX kernel at the edge valid_lens: every live row read exactly once,
+    no NaN from an empty split, zeros for valid_len = 0."""
+    B, KH, G, D = 6, 2, 4, 32
+    valid = np.array([0, 1, 63, 64, 65, T], np.int32)
+    splits, rows = tdecode.plan_splits(T, B * KH, sms)
+    q, k, v = _normal(17, (B, KH * G, D), (B, T, KH, D), (B, T, KH, D))
+    want = jops.decode_attention(_jax(q), _jax(k), _jax(v),
+                                 jnp.asarray(valid), impl="interpret",
+                                 block_k=200)
+    cover = torch.zeros(B, T, dtype=torch.int64)
+    got = _split_decode(_torch(q), _torch(k), _torch(v), valid, splits,
+                        rows, cover)
+    live = torch.arange(T)[None, :] < torch.from_numpy(valid)[:, None]
+    assert torch.equal(cover, live.long())
+    assert torch.isfinite(got).all() and not got[0].any()
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_decode_split_plan_covers_the_cache():
+    """Splits: 1..8 (a portable cluster), at most one a 64-row tile, rows
+    a multiple of 64, every row of T in one split and no split past T;
+    more splits where fewer (batch, KV head) pairs fill the card, never
+    more than one block an SM once split."""
+    for T in (0, 1, 63, 64, 65, 200, 1000, 1024, 33280):
+        for pairs in (1, 3, 16, 128, 512, 4096):
+            for sms in (1, 8, 132):
+                splits, rows = tdecode.plan_splits(T, pairs, sms)
+                assert 1 <= splits <= tdecode.MAX_SPLITS
+                assert rows % tdecode.TILE_ROWS == 0 and rows > 0
+                assert splits * rows >= T
+                assert (splits - 1) * rows < max(T, 1)
+                assert splits == 1 or splits * pairs <= sms
+    # the served decode of Yi-9B (B 4 x KH 4, T 1024) and of Jamba
+    # (KH 8), and decode_32k
+    assert tdecode.plan_splits(1024, 16, 132) == (8, 128)
+    assert tdecode.plan_splits(1024, 32, 132) == (4, 256)
+    assert tdecode.plan_splits(33280, 512, 132) == (1, 33280)
+
+
+def test_flash_route_follows_dtype_and_head_dim():
+    assert [tflash.route(torch.bfloat16, d) for d in tflash.HEAD_DIMS] == \
+        ["cuda_core", "cuda_core", "wgmma", "wgmma"]
+    assert {tflash.route(torch.float32, d) for d in tflash.HEAD_DIMS} == \
+        {"cuda_core"}
+    assert set(tflash.ROUTES) == {"wgmma", "cuda_core"}
 
 
 @pytest.mark.parametrize("residual", [False, True])
@@ -334,6 +440,7 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     ops.mamba_scan(*(_torch(a) for a in _mamba_inputs(6, 1, 3, 8, 4)),
                    torch.zeros(1, 8, 4))
     assert ops.launch_counts() == NO_LAUNCHES
+    assert ops.route_counts() == {"wgmma": 0, "cuda_core": 0}
     assert ops.specialization_count() == 0
 
 
@@ -383,7 +490,7 @@ def test_kernel_modules_import_without_triton_or_nvcc():
             "swiglu, mlstm_chunk, mamba_scan\n"
             f"assert ops.launch_counts() == {NO_LAUNCHES!r}\n"
             "assert fused_groupnorm.tl is None and "
-            "flash_attention._FN is None\n"
+            "flash_attention._FN is None and flash_attention._FN_TC is None\n"
             "assert fused_rmsnorm.tl is None and swiglu.tl is None and "
             "decode_attention._FN is None\n"
             "assert mlstm_chunk._FN is None and mamba_scan._FN is None\n")
@@ -413,14 +520,27 @@ def test_rmsnorm_launch_config_covers_path_widths():
 def test_build_targets_hopper_and_keys_on_source():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    names = ("flash_attention", "decode_attention", "mlstm_chunk",
-             "mamba_scan")
+    names = ("flash_attention", "flash_attention_tc", "decode_attention",
+             "mlstm_chunk", "mamba_scan")
     for name in names:
         p = build.library_path(name)
         assert p.parent == build.BUILD_DIR and p.suffix == ".so"
         assert p == build.library_path(name)   # stable name
         assert (build.CSRC / f"{name}.cu").is_file()
     assert len({build.library_path(name) for name in names}) == len(names)
+
+
+def test_build_keys_on_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared header (csrc/*.cuh) renames every library, so an
+    edited header is rebuilt, never loaded stale."""
+    assert (build.CSRC / "common.cuh").is_file()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert build.library_path("k") != first
 
 
 def test_kernel_impl_registry():
