@@ -8,15 +8,17 @@ Phases, each of which fails the run if it fails:
 
 1. Header: the card's name and power limit (nvidia-smi), then the
    kernels' build from the repository's sources (nvcc for the CUDA C++
-   flash attention (two kernels: CUDA cores, and tensor cores for bf16 at
-   head dims 64 and 128), decode attention, the mLSTM and the selective
-   scan, one process each, in parallel; Triton compiles the GroupNorm,
-   RMSNorm and SwiGLU kernels at first use). Each CUDA kernel's ptxas
-   report (registers, spills) and, where the toolkit has ``cuobjdump``,
-   its SASS's count of tensor-core (``HGMMA``, ``HMMA``) and asynchronous
-   copy (``UTMALDG``, ``LDGSTS``) instructions; the tensor-core flash
-   kernel must hold ``HGMMA`` and ``UTMALDG``, decode attention
-   ``LDGSTS``.
+   flash attention (three kernels: CUDA cores; tensor cores for bf16 at
+   head dims 64 and 128 on wgmma; tensor cores for float32 at head dims
+   64 and 128 as 3xTF32 on mma.sync), GroupNorm, decode attention, the
+   mLSTM and the selective scan, one process each, in parallel; Triton
+   compiles the RMSNorm and SwiGLU kernels at first use). Each CUDA
+   kernel's ptxas report (registers, spills) and, where the toolkit has
+   ``cuobjdump``, its SASS's count of tensor-core (``HGMMA``, ``HMMA``)
+   and asynchronous copy (``UTMALDG``, ``LDGSTS``) instructions; the bf16
+   tensor-core flash kernel must hold ``HGMMA`` and ``UTMALDG``, the
+   float32 one ``HMMA`` and ``UTMALDG``, decode attention ``HMMA`` and
+   ``LDGSTS``, GroupNorm ``LDGSTS``.
 
 Diffusion path (slice 1):
 
@@ -25,7 +27,10 @@ Diffusion path (slice 1):
    forward and one discriminator forward at batch 8), with its stated
    tolerance; times of the kernel, the plain version and one PyTorch
    library call (a yardstick the port never calls), beside the least
-   time the card could take.
+   time the card could take; flash attention also at b = 1 and, as its
+   earlier time, through the CUDA-core kernel at the same inputs; each
+   GroupNorm shape's plan (cluster size, mode) is logged, and every path
+   shape must hold x in shared memory (mode ``resident``).
 3. The slice: the full-width two-tier cascade (64x64x4 latent, base 128,
    tier 0 at 1 DDIM step, tier 1 at 50) behind ``ClusterRuntime``:
    per-tier e(b) from ``measure_profile``, then ``serve_batch`` on
@@ -84,14 +89,16 @@ without RoPE, MoE), each after the previous model's tensors are freed:
 
 12. The wall time and the card's line again, one JSON line listing
     every ported kernel, with its launches by path (diffusion, lm,
-    xlstm, jamba) and, for flash attention, its two routes (``cuda_core``
-    over one UNet forward, ``wgmma`` over one Yi-9B prefill) with their
-    times and launches; then, last, the result line
-    ``{"ok": true, "device": {...}}``.
+    xlstm, jamba) and, for flash attention, its three routes (``tf32x3``
+    over one UNet forward, ``wgmma`` over one Yi-9B prefill, ``cuda_core``
+    at the UNet's inputs) with their times and launches; the two kernels
+    redesigned last (flash attention's float32 route, GroupNorm) carry
+    ``was_ms``, their earlier kernel's time where this run measured it;
+    then, last, the result line ``{"ok": true, "device": {...}}``.
 
 Every served run also checks flash attention's launches by route: the
-diffusion path's all on ``cuda_core`` (float32), the LM paths' all on
-``wgmma`` (bfloat16, head dim 128).
+diffusion path's all on ``tf32x3`` (float32, head dim 128), the LM
+paths' all on ``wgmma`` (bfloat16, head dim 128).
 
 Exits non-zero, printing no result, without CUDA or without the
 repository's ``src/repro_torch`` beside it. Imports nothing of JAX.
@@ -113,7 +120,10 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+# float32 attention on TF32 tensor cores at fp32 accuracy takes three
+# TF32 products for each one (hi*hi + hi*lo + lo*hi)
+TF32_PRODUCTS = 3
 FLASH_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
              "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 GN_TOL = dict(atol=3e-5, rtol=3e-5)
@@ -125,10 +135,13 @@ BUCKETS = (1, 2, 4, 8)
 SERVE_SIZES = (1, 3, 8)
 PROMPT_LEN = 8
 DEV = "cuda"
-CUDA_SOURCES = ("flash_attention", "flash_attention_tc", "decode_attention",
+CUDA_SOURCES = ("flash_attention", "flash_attention_tc",
+                "flash_attention_tf32", "fused_groupnorm", "decode_attention",
                 "mlstm_chunk", "mamba_scan")
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
 SASS_NEEDS = {"flash_attention_tc": ("HGMMA", "UTMALDG"),
+              "flash_attention_tf32": ("HMMA", "UTMALDG"),
+              "fused_groupnorm": ("LDGSTS",),
               "decode_attention": ("HMMA", "LDGSTS")}
 # kernel calls per forward on the full-width path
 PATH_GN = {"unet": 41, "disc": 22}      # 35 of the UNet's with SiLU
@@ -271,8 +284,7 @@ def header_and_build(torch):
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels import fused_groupnorm as tgn
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build(CUDA_SOURCES)
     t_nvcc = time.perf_counter() - t0
@@ -280,18 +292,9 @@ def header_and_build(torch):
     for ln in ptxas:
         log(f"ptxas: {ln}")
     sass = sass_counts(libs)
-    t0 = time.perf_counter()
-    x = torch.randn(2, 8, 8, 32, device=DEV)
-    ops.fused_groupnorm(x, torch.ones(32, device=DEV),
-                        torch.zeros(32, device=DEV), groups=8)
-    torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t0
     log(f"build: nvcc of the {len(CUDA_SOURCES)} CUDA sources in parallel "
-        f"{t_nvcc:.3f} s; triton first fused_groupnorm compile "
-        f"{t_triton:.3f} s (specialisations so far "
-        f"{len(tgn.fused_groupnorm.specializations)})")
-    return {"card": card, "nvcc_s": t_nvcc, "triton_first_s": t_triton,
-            "ptxas": ptxas, "sass": sass}
+        f"{t_nvcc:.3f} s")
+    return {"card": card, "nvcc_s": t_nvcc, "ptxas": ptxas, "sass": sass}
 
 
 def ptxas_report(libs):
@@ -316,8 +319,8 @@ def ptxas_report(libs):
 def sass_counts(libs):
     """Per library, the count of tensor-core and asynchronous-copy
     instructions in its SASS (``cuobjdump -sass``); fails where the
-    tensor-core flash kernel lacks HGMMA or TMA loads, or decode
-    attention lacks cp.async. None where the toolkit has no cuobjdump."""
+    ones named in ``SASS_NEEDS`` lack their tensor-core or asynchronous-
+    copy instructions. None where the toolkit has no cuobjdump."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or str(
@@ -398,7 +401,26 @@ def record_path_calls(torch, full_cfg, dcfg):
                    "disc_logit_max_abs_diff": err_logit}
 
 
+def _flash_cuda_core(torch, q, k, v, causal, kv_len):
+    """The CUDA-core flash kernel (``csrc/flash_attention.cu``), which
+    still builds every head dim, called past the wrapper's route: the
+    float32 route's earlier kernel, timed beside it at the same inputs.
+    Not a launch of the path, so not counted."""
+    import math
+    from repro_torch.kernels import flash_attention as tflash
+    fn, errstr = tflash._forward()
+    out = torch.empty_like(q)
+    B, Sq, H, D = q.shape
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+             k.shape[1], H, k.shape[2], D, kv_len or k.shape[1], int(causal),
+             1.0 / math.sqrt(D), 0, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"flash_attention cuda_core: {errstr(err).decode()}")
+    return out
+
+
 def check_flash(torch, calls):
+    from repro_torch.device import sm_count
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels.ref import flash_attention_ref
     F = torch.nn.functional
@@ -409,6 +431,8 @@ def check_flash(torch, calls):
         fail(f"expected one attention shape on the path, got {path}")
     (qs, ks, causal), per_forward = next(iter(path.items()))
     cases = [("path", qs, ks, False, None, "float32"),
+             ("path b=1", (1, *qs[1:]), (1, *ks[1:]), False, None,
+              "float32"),
              ("kv_len<Sk", qs, (ks[0], 384, ks[2], ks[3]), False, ks[1],
               "float32"),
              ("causal GQA", (2, 512, 8, 64), (2, 512, 2, 64), True, None,
@@ -421,6 +445,7 @@ def check_flash(torch, calls):
         q = torch.randn(qshape, generator=g, device=DEV).to(dt)
         k = torch.randn(kshape, generator=g, device=DEV).to(dt)
         v = torch.randn(kshape, generator=g, device=DEV).to(dt)
+        way = tflash.route(dt, qshape[-1])
         got = tflash.flash_attention(q, k, v, causal=causal, kv_len=kv)
         want = flash_attention_ref(q, k, v, causal=causal, kv_len=kv)
         torch.cuda.synchronize()
@@ -434,9 +459,13 @@ def check_flash(torch, calls):
         # q and o once, the kv_len rows of k and v once
         nbytes = (2 * q.numel() + 2 * B * kvl * kshape[2] * D) \
             * q.element_size()
-        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        if way == "tf32x3":
+            b_ms, b_by = bound_ms(nbytes, TF32_PRODUCTS * flops, "tf32")
+        else:
+            b_ms, b_by = bound_ms(nbytes, flops, dtype)
         row = {"case": name, "q": qshape, "k": kshape, "causal": causal,
-               "kv_len": kv, "dtype": dtype, "max_abs_err": err,
+               "kv_len": kv, "dtype": dtype, "route": way,
+               "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: tflash.flash_attention(
                    q, k, v, causal=causal, kv_len=kv)),
                "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
@@ -448,26 +477,43 @@ def check_flash(torch, calls):
                 torch, lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), kk.transpose(1, 2),
                     vv.transpose(1, 2)))
+        was = ""
+        if way == "tf32x3":
+            row["key_groups"] = tflash.plan_key_groups(
+                B, H, Sq, sm_count(q.device))
+            was = f"; {row['key_groups']} key groups"
+            old = _flash_cuda_core(torch, q, k, v, causal, kv)
+            torch.testing.assert_close(old, want, **FLASH_TOL[dtype])
+            row["was_max_abs_err"] = (old - want).abs().max().item()
+            row["was_ms"] = cuda_ms(torch, lambda: _flash_cuda_core(
+                torch, q, k, v, causal, kv))
+            row["was_bound_ms"] = bound_ms(nbytes, flops, dtype)[0]
+            was += (f"; was (cuda_core) {row['was_ms']:.4f} ms, max|err| "
+                   f"{row['was_max_abs_err']:.3e}, bound "
+                   f"{row['was_bound_ms']:.4f} ms")
         rows.append(row)
         log(f"flash_attention {name}: q {qshape} k {kshape} {dtype} "
-            f"causal={causal} kv_len={kv}: max|err| {err:.3e} "
+            f"causal={causal} kv_len={kv} route {way}: max|err| {err:.3e} "
             f"(tol {FLASH_TOL[dtype]}); kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by}){was}")
     p = rows[0]
     entry = {"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_tf32.cu",
              "replaces": "src/repro/kernels/flash_attention.py:82",
              "max_abs_err": worst,
              "per": f"one UNet forward at b=8: {per_forward} launches at "
-                    f"q {qs} k/v {ks}"}
-    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    f"q {qs} k/v {ks}; was_ms: the CUDA-core kernel there"}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms", "was_ms",
+                "was_bound_ms"):
         entry[key] = p[key] * per_forward
     entry["bound_by"] = p["bound_by"]
+    entry["was_max_abs_err"] = p["was_max_abs_err"]
     return entry, rows
 
 
 def check_groupnorm(torch, calls):
+    from repro_torch.device import sm_count
     from repro_torch.kernels import fused_groupnorm as tgn
     from repro_torch.kernels.ref import group_count, groupnorm_silu_ref
     F = torch.nn.functional
@@ -480,8 +526,13 @@ def check_groupnorm(torch, calls):
     rows, worst = [], 0.0
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                t_bytes=0.0, t_ops=0.0)
+    sms = sm_count(torch.device(DEV))
     for (shape, groups, act), n in sorted(mult.items()):
         C = shape[-1]
+        plan = tgn.plan(shape, groups, sms)
+        if plan.mode != "resident":
+            fail(f"fused_groupnorm {shape}: planned {plan}; every path "
+                 "shape should hold x in shared memory")
         x = torch.randn(shape, generator=g, device=DEV) * 2 + 0.5
         s = torch.rand(C, generator=g, device=DEV) + 0.5
         b = torch.randn(C, generator=g, device=DEV) * 0.1
@@ -501,7 +552,8 @@ def check_groupnorm(torch, calls):
         flops = (12 if act else 8) * x.numel()
         b_ms, b_by = bound_ms(nbytes, flops, "float32")
         row = {"shape": shape, "groups": gg, "act": act, "per_path": n,
-               "max_abs_err": err,
+               "cluster": plan.cluster, "rows": plan.rows, "mode": plan.mode,
+               "vec": plan.vec, "smem": plan.smem, "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: tgn.fused_groupnorm(
                    x, s, b, groups=groups, act=act)),
                "plain_ms": cuda_ms(torch, lambda: groupnorm_silu_ref(
@@ -513,13 +565,15 @@ def check_groupnorm(torch, calls):
             tot[key] += n * row[key]
         tot["t_bytes"] += n * nbytes / PEAK_BYTES_S * 1e3
         tot["t_ops"] += n * flops / PEAK_FLOPS_S["float32"] * 1e3
-        log(f"fused_groupnorm {shape} g={gg} act={act} x{n}: max|err| "
+        log(f"fused_groupnorm {shape} g={gg} act={act} x{n} cluster "
+            f"{plan.cluster} x {plan.rows} rows, {plan.mode}, vec "
+            f"{plan.vec}, {plan.smem} B shared: max|err| "
             f"{err:.3e} (tol {GN_TOL}); kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
             f" bound {b_ms:.4f} ms ({b_by})")
     n_calls = sum(mult.values())
-    entry = {"name": "fused_groupnorm", "route": "triton",
-             "source": "src/repro_torch/kernels/fused_groupnorm.py",
+    entry = {"name": "fused_groupnorm", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/fused_groupnorm.cu",
              "replaces": "src/repro/kernels/fused_groupnorm.py:36",
              "max_abs_err": worst,
              "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -527,6 +581,9 @@ def check_groupnorm(torch, calls):
              "bound_by": "bytes" if tot["t_bytes"] >= tot["t_ops"]
              else "operations",
              "library_ms": tot["library_ms"],
+             # the earlier (Triton) kernel is gone from the repository:
+             # its time is the parent commit's run, in PERF.md
+             "was_ms": None,
              "per": f"one UNet + one discriminator forward at b=8: "
                     f"{n_calls} launches over {len(mult)} shapes"}
     return entry, rows
@@ -677,21 +734,25 @@ def serve_slice(torch, np, full_cfg, dcfg):
         f"{want}, total {sum(want.values())}); serve wall {serve_s:.3f} s")
     if counts != want:
         fail(f"launch counts {counts} != expected {want}")
-    # the UNet's attention: q (b, 256, 4, 128), head dim 128
-    routes = check_routes(torch, "diffusion", full_cfg.dtype, 128,
+    # the UNet's attention: float32 q (b, 256, 4, 128), head dim 128
+    routes = check_routes(torch, "diffusion", full_cfg.dtype, 128, "tf32x3",
                           counts["flash_attention"])
     return counts, {"e_b": eb, "served": served, "serve_wall_s": serve_s,
                     "flash_routes": routes}, casc
 
 
-def check_routes(torch, what, dtype, head_dim, n_flash):
+def check_routes(torch, what, dtype, head_dim, way, n_flash):
     """Flash attention's launches by route since the counters were last
-    zeroed: all ``n_flash`` on the route of ``dtype`` at ``head_dim``."""
+    zeroed: all ``n_flash`` on ``way``, which must be the route of
+    ``dtype`` at ``head_dim`` where there are any."""
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ops
+    if n_flash and tflash.route(getattr(torch, dtype), head_dim) != way:
+        fail(f"{what}: {dtype} at head dim {head_dim} is routed to "
+             f"{tflash.route(getattr(torch, dtype), head_dim)}, not {way}")
     routes = ops.route_counts()
     want = dict.fromkeys(tflash.ROUTES, 0)
-    want[tflash.route(getattr(torch, dtype), head_dim)] = n_flash
+    want[way] = n_flash
     log(f"flash attention launches by route over the {what} run: {routes} "
         f"(expected {want})")
     if routes != want:
@@ -1224,7 +1285,7 @@ def serve_lm(torch, cfg, params):
     if counts != want:
         fail(f"{cfg.name} launch counts {counts} != expected {want}")
     routes = check_routes(torch, cfg.name, cfg.dtype, cfg.resolved_head_dim,
-                          counts["flash_attention"])
+                          "wgmma", counts["flash_attention"])
     if not bool(torch.stack(finite).all()) or logits.shape != (
             LM_BATCH, cfg.vocab_size):
         fail(f"{cfg.name} slice: logits not finite or of the wrong shape")
@@ -1558,19 +1619,28 @@ def main(argv=None) -> int:
     for arch in REC_ARCHS:
         entry, rec_counts[arch], details[arch] = recurrent_phase(torch, arch)
         rec_entries.append(entry)
-    # flash attention's two routes: the diffusion path's float32 calls on
-    # CUDA cores, the LM paths' bf16 calls on tensor cores
+    # flash attention's three routes: the diffusion path's float32 calls
+    # on tf32x3, the LM paths' bf16 calls on wgmma; cuda_core (no path's
+    # head dim) timed at the UNet's inputs as the float32 route's earlier
+    # kernel
     routes = {"diffusion": details["slice"]["flash_routes"],
               "lm": details["lm"]["slice"]["flash_routes"],
               **{a: details[a]["slice"]["flash_routes"] for a in REC_ARCHS}}
     lm_flash = lm_entries.pop("flash_attention")
     fa_entry["routes"] = {}
-    for way, e in (("cuda_core", fa_entry), ("wgmma", lm_flash)):
+    for way, e in (("tf32x3", fa_entry), ("wgmma", lm_flash)):
         fa_entry["routes"][way] = {
             **{k: e[k] for k in ("source", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "per")},
             "launches": sum(r[way] for r in routes.values())}
+    fa_entry["routes"]["cuda_core"] = {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "max_abs_err": fa_entry["was_max_abs_err"],
+        "ms": fa_entry["was_ms"], "plain_ms": fa_entry["plain_ms"],
+        "bound_ms": fa_entry["was_bound_ms"], "bound_by": "operations",
+        "library_ms": fa_entry["library_ms"], "per": fa_entry["per"],
+        "launches": sum(r["cuda_core"] for r in routes.values())}
     kernels = []
     for e in (fa_entry, gn_entry, *lm_entries.values(), *rec_entries):
         by_path = {"diffusion": counts[e["name"]], "lm": lm_counts[e["name"]],
@@ -1580,8 +1650,8 @@ def main(argv=None) -> int:
         e["launches_by_path"] = by_path
         kernels.append({k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per",
-            "launches_by_path", "routes") if k in e})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "was_ms",
+            "per", "launches_by_path", "routes") if k in e})
     details["wall_s"] = time.perf_counter() - t_start
     if args.out:
         out = Path(args.out)

@@ -24,10 +24,11 @@
 // 67 TFLOP/s fp32 CUDA-core peak; 17.0 MB of q, k, v and o, 5.1 us at
 // 3.35 TB/s. So operations bound it. This first version runs on CUDA
 // cores and reads every operand from shared memory once per FMA pair,
-// so shared-memory bandwidth, not the FMA rate, limits it. bfloat16 at
-// head dims 64 and 128 (every LM prefill call) takes the tensor-core
-// kernel of flash_attention_tc.cu instead; this one keeps float32 (the
-// UNet) and bf16 at head dims 16 and 32.
+// so shared-memory bandwidth, not the FMA rate, limits it. At head dims
+// 64 and 128 both dtypes take tensor-core kernels instead (bfloat16, every
+// LM prefill call: flash_attention_tc.cu; float32, every UNet call:
+// flash_attention_tf32.cu); this one keeps float32 and bf16 at head dims
+// 16 and 32.
 //
 // Plain C interface, built by nvcc into a shared library and called
 // through ctypes (repro_torch/kernels/flash_attention.py).

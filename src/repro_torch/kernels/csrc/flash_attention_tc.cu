@@ -60,7 +60,6 @@
 // Plain C interface, built by nvcc into a shared library and called
 // through ctypes (repro_torch/kernels/flash_attention.py).
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,6 +67,7 @@
 #include <string.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -90,51 +90,6 @@ struct Tc {
   // [NSTAGE] each; then slack to align the base to 1024 bytes
   static constexpr int SMEM = OFF_BAR + 8 * (4 + 4 * NSTAGE) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // named barrier `id` (0 is __syncthreads) over `count` threads
 __device__ __forceinline__ void named_sync(int id, int count) {
@@ -555,72 +510,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, without linking it
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &res) != cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a (B, S, heads, D) bf16 tensor as a 4-D map over (D, heads, S, B), box
-// (64, 1, 128, 1), 128-byte swizzle; rows past S read as zeros. Encoded
-// maps are cached per host thread while the pointer and shape repeat; the
-// map is copied out by value, so a later miss that reuses its slot cannot
-// change a map already handed out.
-struct MapKey {
-  const void* ptr;
-  int D, heads, S, B;
-};
-constexpr int MAP_CACHE = 16;
-
-bool tensor_map(CUtensorMap* out, const void* ptr, int D, int heads, int S,
-                int B) {
-  thread_local MapKey keys[MAP_CACHE] = {};
-  thread_local CUtensorMap maps[MAP_CACHE];
-  thread_local int next = 0;
-  for (int i = 0; i < MAP_CACHE; ++i)
-    if (keys[i].ptr == ptr && keys[i].D == D && keys[i].heads == heads &&
-        keys[i].S == S && keys[i].B == B) {
-      *out = maps[i];
-      return true;
-    }
-  EncodeTiled fn = encode_fn();
-  if (!fn) return false;
-  const int slot = next;
-  next = (next + 1) % MAP_CACHE;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {ATOM, 1, BK, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  keys[slot].ptr = nullptr;
-  if (fn(&maps[slot], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-         const_cast<void*>(ptr), dims, strides, box, estride,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  keys[slot] = {ptr, D, heads, S, B};
-  *out = maps[slot];
-  return true;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KH, int kv_len, int causal, float scale,
@@ -630,8 +519,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                                   &smem_set);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, D, H, Sq, B) || !tensor_map(&mk, k, D, KH, Sk, B) ||
-      !tensor_map(&mv, v, D, KH, Sk, B))
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!tensor_map(&mq, q, BF16, 2, ATOM, BQ, D, H, Sq, B) ||
+      !tensor_map(&mk, k, BF16, 2, ATOM, BK, D, KH, Sk, B) ||
+      !tensor_map(&mv, v, BF16, 2, ATOM, BK, D, KH, Sk, B))
     return -2;
   const int items = B * H * ((Sq + BQ - 1) / BQ);
   flash_fwd_tc<D><<<min(items, sms), THREADS, Tc<D>::SMEM, stream>>>(

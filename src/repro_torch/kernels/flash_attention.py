@@ -1,26 +1,29 @@
-"""Flash attention on Hopper: the wrapper of ``csrc/flash_attention.cu``
-and ``csrc/flash_attention_tc.cu``.
+"""Flash attention on Hopper: the wrapper of ``csrc/flash_attention.cu``,
+``csrc/flash_attention_tc.cu`` and ``csrc/flash_attention_tf32.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:
-flash_attention`` (body ``_flash_kernel``). Two CUDA C++ kernels, each
+flash_attention`` (body ``_flash_kernel``). Three CUDA C++ kernels, each
 built by nvcc for ``sm_90a`` into a shared library with a plain C
 interface (``kernels/build.py``) and called through ctypes on PyTorch's
 current stream; ``route`` picks one from the dtype and head dim before
-the launch. bfloat16 at head dims 64 and 128 (every LM prefill call)
-takes ``wgmma``, the tensor-core kernel fed by TMA; float32 (the UNet)
-and bf16 at head dims 16 and 32 take ``cuda_core``. Launches are counted
-in total (``flash_attention.launches``) and per route
+the launch. At head dims 64 and 128, bfloat16 (every LM prefill call)
+takes ``wgmma``, the bf16 tensor-core kernel fed by TMA, and float32
+(every diffusion call, the UNet's) takes ``tf32x3``, tensor cores at
+float32 accuracy (each product split into three TF32 products); both
+dtypes at head dims 16 and 32 take ``cuda_core``. Launches are counted in
+total (``flash_attention.launches``) and per route
 (``flash_attention.route_launches``). Its plain PyTorch version is
 ``kernels/ref.flash_attention_ref`` (``ops.PLAIN``).
 
 Bound on an H100 SXM at the UNet's shape (q (8,256,4,128), k/v
-(8,264,4,128), f32, non-causal): 1.11 GFLOP at the 67 TFLOP/s fp32
-CUDA-core peak, 16.5 us; operations, not bytes (17.0 MB, 5.1 us), bound
-it. At the LM prefill shape (bf16 q (4,512,32,128), k/v (4,512,4,128),
+(8,264,4,128), f32, non-causal): 1.11 GFLOP, taken at fp32 accuracy as
+3 x 1.11 GFLOP of TF32 at 495 TFLOP/s, 6.7 us (16.5 us at the 67 TFLOP/s
+fp32 CUDA-core peak); operations, not bytes (17.0 MB, 5.1 us), bound it.
+At the LM prefill shape (bf16 q (4,512,32,128), k/v (4,512,4,128),
 causal) bytes bound it: 37.7 MB, 11.3 us at 3.35 TB/s, against 8.7 us of
-bf16 tensor-core operations. Both kernels keep scores, probabilities and
-the accumulator on chip, so device memory sees each operand once; see
-the sources for their tiling.
+bf16 tensor-core operations. Every kernel keeps scores, probabilities
+and the accumulator on chip, so device memory sees each operand once;
+see the sources for their tiling.
 """
 from __future__ import annotations
 
@@ -35,21 +38,41 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 TC_HEAD_DIMS = (64, 128)
-ROUTES = ("wgmma", "cuda_core")
+ROUTES = ("wgmma", "tf32x3", "cuda_core")
+# key groups of the tf32x3 kernel: a block of 8 warps is 128 / KW query
+# rows x KW groups of keys
+KEY_GROUPS = (2, 4, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 _FN_TC = None
+_FN_TF32 = None
 
-__all__ = ["flash_attention", "route", "HEAD_DIMS", "ROUTES"]
+__all__ = ["flash_attention", "route", "plan_key_groups", "HEAD_DIMS",
+           "ROUTES"]
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a call takes, from its dtype and head dim alone:
-    ``wgmma`` (tensor cores) for bfloat16 at head dims 64 and 128, else
-    ``cuda_core``."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
-        return "wgmma"
+    """The kernel a call takes, from its dtype and head dim alone: at head
+    dims 64 and 128, ``wgmma`` for bfloat16 and ``tf32x3`` for float32
+    (tensor cores, both); else ``cuda_core``."""
+    if head_dim in TC_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "cuda_core"
+
+
+def plan_key_groups(B: int, H: int, Sq: int, sms: int) -> int:
+    """Key groups KW of the ``tf32x3`` kernel: a block takes 128 / KW
+    query rows of one (batch, head), its 8 warps split KW ways over the
+    keys. The fewest groups that give at least 3/4 of the SMs a block;
+    8 where none does (the UNet at b = 8: 2, 128 blocks; at b = 1: 8, 64
+    blocks)."""
+    for kw in KEY_GROUPS:
+        if B * H * -(-Sq // (128 // kw)) >= 3 * sms // 4:
+            return kw
+    return KEY_GROUPS[-1]
 
 
 def _bind(name: str, extra):
@@ -78,6 +101,13 @@ def _forward_tc():
     if _FN_TC is None:
         _FN_TC = _bind("flash_attention_tc", [ctypes.c_int])
     return _FN_TC
+
+
+def _forward_tf32():
+    global _FN_TF32
+    if _FN_TF32 is None:
+        _FN_TF32 = _bind("flash_attention_tf32", [ctypes.c_int])
+    return _FN_TF32
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -115,7 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < kv <= Sk:
         raise ValueError(f"kv_len={kv_len} outside (0, {Sk}]")
     way = route(q.dtype, D)
-    if way == "wgmma":
+    if way != "cuda_core":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention kernel: {name} is not "
@@ -130,6 +160,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if way == "wgmma":
             fn, errstr = _forward_tc()
             err = fn(*args, sm_count(q.device), stream)
+        elif way == "tf32x3":
+            fn, errstr = _forward_tf32()
+            err = fn(*args, plan_key_groups(B, H, Sq, sm_count(q.device)),
+                     stream)
         else:
             fn, errstr = _forward()
             err = fn(*args, _DTYPES[q.dtype], stream)

@@ -1,4 +1,5 @@
-"""Fused GroupNorm (+ optional SiLU) on Hopper, in Triton.
+"""Fused GroupNorm (+ optional SiLU) on Hopper: the wrapper of
+``csrc/fused_groupnorm.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/fused_groupnorm.py:
 fused_groupnorm`` (body ``_gn_kernel``): per-sample GroupNorm over
@@ -8,111 +9,122 @@ per-channel scale/bias, then an optional SiLU, on channels-last
 Its plain PyTorch version is ``kernels/ref.groupnorm_silu_ref``
 (``ops.PLAIN``).
 
-Triton fits because the kernel is one reduction (per-(sample, group)
-mean and variance) followed by one fused elementwise pass (normalise,
-scale/bias, SiLU); there is no matrix product and no async-copy
-pipeline to hand-schedule.
-
-Design. The TPU kernel holds a whole sample (HW, C) in VMEM; that is
-6.3 MB at (64*64, 384) f32, far above a block's 227 KB of shared memory.
-So one program handles one (sample, group) and loops over HW in
-(BLOCK_HW, BLOCK_C) tiles twice: the first pass keeps a Welford count,
-mean and M2 per tile lane and merges the lanes at the end (the variance
-is the mean of squared deviations, not E[x^2] - E[x]^2); the second pass
-normalises, applies scale/bias and SiLU, and stores.
+One CUDA C++ launch a call, built by nvcc for ``sm_90a`` into a shared
+library with a plain C interface (``kernels/build.py``) and called
+through ctypes on PyTorch's current stream: a thread-block cluster per
+(sample, group) whose blocks hold its rows in shared memory, so x is
+read from device memory once (see the source's note). ``plan`` sizes the
+cluster from the shape alone; it is plain Python, tested on the CPU.
 
 Bound on an H100 SXM: bytes. At (8,64,64,384) f32 the function must read
-50.3 MB and write 50.3 MB, 30 us at 3.35 TB/s; its ~10 operations per
-element are far below the fp32 peak. This version reads x twice (the
-statistics pass and the normalise pass), and runs B*g programs (64 at
-b=8, g=8), fewer than the card's 132 SMs; splitting HW across programs
-is later work.
-
-Triton is imported, and the kernel compiled, at the first launch only:
-this module imports on a machine without triton.
+50.3 MB and write 50.3 MB, 30 us at 3.35 TB/s; its ~12 operations per
+element are far below the fp32 peak.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import math
+
 import torch
 
+from repro_torch.device import sm_count
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import group_count
 
-__all__ = ["fused_groupnorm"]
+__all__ = ["fused_groupnorm", "plan", "GnPlan"]
 
-# triton.language, bound at the first launch; the kernel body reads it
-# from this module's globals when triton compiles it
-tl = None
-_KERNEL = None
-TILE = 2048          # elements of one (BLOCK_HW, BLOCK_C) tile
-
-
-def _groupnorm_kernel(x_ptr, s_ptr, b_ptr, o_ptr, HW, C, CG, eps,
-                      ACT: tl.constexpr, BLOCK_HW: tl.constexpr,
-                      BLOCK_C: tl.constexpr):
-    pid = tl.program_id(0)
-    G = C // CG
-    base = (pid // G).to(tl.int64) * HW * C + (pid % G) * CG
-    rows = tl.arange(0, BLOCK_HW)
-    cols = tl.arange(0, BLOCK_C)
-    cmask = cols < CG
-    cnt = tl.zeros([BLOCK_HW, BLOCK_C], dtype=tl.float32)
-    mean = tl.zeros([BLOCK_HW, BLOCK_C], dtype=tl.float32)
-    m2 = tl.zeros([BLOCK_HW, BLOCK_C], dtype=tl.float32)
-    for start in range(0, HW, BLOCK_HW):
-        r = start + rows
-        mask = (r < HW)[:, None] & cmask[None, :]
-        offs = base + r[:, None] * C + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        cnt_new = cnt + mask.to(tl.float32)
-        delta = x - mean
-        mean = mean + tl.where(mask, delta / tl.maximum(cnt_new, 1.0), 0.0)
-        m2 = m2 + tl.where(mask, delta * (x - mean), 0.0)
-        cnt = cnt_new
-    n = tl.sum(tl.sum(cnt, axis=1), axis=0)
-    mu = tl.sum(tl.sum(cnt * mean, axis=1), axis=0) / n
-    dev = mean - mu
-    var = tl.sum(tl.sum(m2 + cnt * dev * dev, axis=1), axis=0) / n
-    rstd = 1.0 / tl.sqrt(var + eps)
-    ch = (pid % G) * CG + cols
-    scale = tl.load(s_ptr + ch, mask=cmask, other=0.0).to(tl.float32)
-    bias = tl.load(b_ptr + ch, mask=cmask, other=0.0).to(tl.float32)
-    for start in range(0, HW, BLOCK_HW):
-        r = start + rows
-        mask = (r < HW)[:, None] & cmask[None, :]
-        offs = base + r[:, None] * C + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        y = (x - mu) * rstd * scale[None, :] + bias[None, :]
-        if ACT:
-            y = y * tl.sigmoid(y)
-        tl.store(o_ptr + offs, y.to(o_ptr.dtype.element_ty), mask=mask)
+CLUSTER_SIZES = (1, 2, 4, 8)      # portable thread-block clusters
+# dynamic shared memory a block may take: 227 KB less 1 KB for the
+# kernel's static part and slack (``SMEM_MAX`` in the source)
+SMEM_BYTES = 232448 - 1024
+# shared memory of one SM, for how many blocks it holds at once
+SM_SMEM_BYTES = 233472
+# a block that has the card to itself is split further while it holds
+# more than this: one SM's copies alone do not reach the memory's rate
+SPLIT_BYTES = 32 * 1024
+_FN = None
 
 
-def _kernel():
-    global _KERNEL, tl
-    if _KERNEL is None:
-        import triton
-        import triton.language as language
-        tl = language
-        _KERNEL = triton.jit(_groupnorm_kernel)
-    return _KERNEL
+@dataclasses.dataclass(frozen=True)
+class GnPlan:
+    """How the kernel runs one call: ``groups`` of ``cg`` channels over
+    ``hw`` rows; a cluster of ``cluster`` blocks a (sample, group), each
+    owning ``rows`` rows (the last one fewer) of which ``chunk_rows`` fit
+    its shared memory; mode ``resident`` (x read once) or ``reread``
+    (statistics chunk by chunk, x read again to normalise); ``vec``
+    floats a copy (4 where ``cg`` allows 16-byte copies, else 1);
+    ``smem`` dynamic shared-memory bytes a block."""
+    groups: int
+    hw: int
+    cg: int
+    cluster: int
+    rows: int
+    chunk_rows: int
+    mode: str
+    vec: int
+    smem: int
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
+def _param_bytes(cg: int) -> int:
+    """Shared bytes of the group's scale and bias, padded to 16."""
+    return 16 * ((2 * cg + 3) // 4)
 
 
-def launch_config(shape, groups: int):
-    """(g, HW, CG, BLOCK_HW, BLOCK_C) the kernel runs with for a
-    channels-last ``shape``."""
-    C = shape[-1]
-    hw = 1
-    for d in shape[1:-1]:
-        hw *= d
+def plan(shape, groups: int, sms: int) -> GnPlan:
+    """The launch for a channels-last ``shape`` (B, ..., C) on a card of
+    ``sms`` SMs. The cluster starts at the fewest blocks a (sample,
+    group) whose shares fit ``SMEM_BYTES`` and doubles (up to 8) while
+    the blocks need more than one wave of the SMs, or while twice as many
+    blocks still fit one block an SM and each holds more than
+    ``SPLIT_BYTES``: clusters cost launch time (8 blocks the most), so
+    they grow only where the card or the copy rate asks for it. A slice
+    that 8 blocks cannot hold takes 8 and the ``reread`` mode."""
+    B, C = shape[0], shape[-1]
+    hw = math.prod(shape[1:-1])
     g = group_count(groups, C)
     cg = C // g
-    block_c = _next_pow2(cg)
-    block_hw = min(_next_pow2(hw), max(TILE // block_c, 1))
-    return g, hw, cg, block_hw, block_c
+    room = (SMEM_BYTES - _param_bytes(cg)) // (4 * cg)   # rows that fit
+    if room < 1:
+        raise ValueError(f"fused_groupnorm: a row of {cg} channels does "
+                         "not fit a block's shared memory")
+    cs = next((c for c in CLUSTER_SIZES if -(-hw // c) <= room),
+              CLUSTER_SIZES[-1])
+
+    def share(c):          # bytes of a block's rows, and blocks an SM
+        nbytes = min(-(-hw // c), room) * cg * 4
+        return nbytes, SM_SMEM_BYTES // (nbytes + _param_bytes(cg) + 1024)
+
+    while cs < CLUSTER_SIZES[-1]:
+        nbytes, per_sm = share(cs)
+        if not (B * g * cs > sms * per_sm
+                or (2 * B * g * cs <= sms and nbytes > SPLIT_BYTES)):
+            break
+        cs *= 2
+    while cs > 1 and (cs - 1) * -(-hw // cs) >= hw:    # no empty block
+        cs //= 2
+    rows = -(-hw // cs)
+    chunk = min(rows, room)
+    return GnPlan(groups=g, hw=hw, cg=cg, cluster=cs, rows=rows,
+                  chunk_rows=chunk,
+                  mode="resident" if chunk == rows else "reread",
+                  vec=4 if cg % 4 == 0 else 1,
+                  smem=_param_bytes(cg) + chunk * cg * 4)
+
+
+def _forward():
+    global _FN
+    if _FN is None:
+        lib = build.load("fused_groupnorm")
+        fn = lib.fused_groupnorm_forward
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = lib.fused_groupnorm_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _FN = fn, err
+    return _FN
 
 
 def fused_groupnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -127,9 +139,11 @@ def fused_groupnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError("fused_groupnorm kernel: x is not contiguous "
                          "(channels-last (B, ..., C) expected)")
-    if x.dtype != torch.float32:
-        raise ValueError(f"fused_groupnorm kernel: dtype {x.dtype}, only "
-                         "float32 (the served path's dtype)")
+    if x.dtype != torch.float32 or scale.dtype != torch.float32 \
+            or bias.dtype != torch.float32:
+        raise ValueError(f"fused_groupnorm kernel: dtypes {x.dtype}, "
+                         f"{scale.dtype}, {bias.dtype}; only float32 (the "
+                         "served path's dtype)")
     C = x.shape[-1]
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError(f"fused_groupnorm kernel: scale/bias shape "
@@ -137,21 +151,22 @@ def fused_groupnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    g, hw, cg, block_hw, block_c = launch_config(x.shape, groups)
-    kernel = _kernel()
+    p = plan(x.shape, groups, sm_count(x.device))
+    # 16-byte copies need 16-byte aligned rows: a view at an odd offset
+    # takes 4-byte copies (y, fresh, is aligned)
+    vec = p.vec if x.data_ptr() % 16 == 0 else 1
+    scale, bias = scale.contiguous(), bias.contiguous()
+    fn, errstr = _forward()
     with torch.cuda.device(x.device):
-        kernel[(x.shape[0] * g,)](
-            x, scale.contiguous(), bias.contiguous(), y, hw, C, cg,
-            float(eps), ACT=bool(act), BLOCK_HW=block_hw, BLOCK_C=block_c,
-            num_warps=4)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 y.data_ptr(), x.shape[0], p.hw, C, p.groups, p.cluster,
+                 p.rows, p.chunk_rows, vec, int(act), float(eps), stream)
+    if err != 0:
+        raise RuntimeError("fused_groupnorm kernel launch failed: "
+                           + errstr(err).decode())
     fused_groupnorm.launches += 1
-    fused_groupnorm.specializations.add(
-        (x.dtype, hw, C, cg, bool(act), block_hw, block_c))
     return y
 
 
 fused_groupnorm.launches = 0
-# every (dtype, shape, constexpr) combination launched so far: a superset
-# of the programs triton has compiled, so a timed run can check that no
-# new one appeared
-fused_groupnorm.specializations = set()

@@ -119,8 +119,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, int]:
-    """Flash attention's launches by kernel: ``wgmma`` (bf16 at head
-    dims 64 and 128) and ``cuda_core`` (the rest)."""
+    """Flash attention's launches by kernel: at head dims 64 and 128
+    ``wgmma`` (bf16) and ``tf32x3`` (float32), and ``cuda_core`` (the
+    rest)."""
     return dict(_flash.flash_attention.route_launches)
 
 
@@ -130,10 +131,3 @@ def reset_launch_counts() -> None:
     for way in _flash.flash_attention.route_launches:
         _flash.flash_attention.route_launches[way] = 0
 
-
-def specialization_count() -> int:
-    """Distinct Triton specialisations of the diffusion path's GroupNorm
-    kernel launched so far (the counterpart of an XLA compile, watched
-    by ``ClusterRuntime.measure_profile``); the CUDA C++ kernels are
-    compiled ahead of time."""
-    return len(_gn.fused_groupnorm.specializations)

@@ -17,7 +17,6 @@ import torch
 
 from repro_torch.config.base import LatencyProfile
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass
@@ -77,18 +76,16 @@ class ClusterRuntime:
             for i in range(num_workers)]
         self.last_stage_times: List[List[Tuple[int, float]]] = []
 
-    def _compile_state(self):
-        return self.cascade.shape_counts(), ops.specialization_count()
 
     def measure_profile(self, batches=(1, 2, 4), prompt_len: int = 8,
                         repeats: int = 2) -> List[LatencyProfile]:
         """Time each real cascade stage -> per-tier LatencyProfile fits
         (tier order matches ``cascade.stages``); the best-of-``repeats``
         seconds per (tier, batch) stay in ``last_stage_times``. Every
-        (stage, batch) runs once untimed first (Triton compiles each new
-        specialisation at its first launch); a new batch shape or
-        specialisation during the timed repeats raises, since it would
-        fold compile time into service time."""
+        (stage, batch) runs once untimed first (the kernel libraries are
+        built and loaded at their first launch); a new batch shape during
+        the timed repeats raises, since it would fold first-call time into
+        service time."""
         stages = self.cascade.stage_fns()
         calls = [[(b, torch.zeros((b, prompt_len), dtype=torch.int64,
                                   device=self.device)) for b in batches]
@@ -97,19 +94,19 @@ class ClusterRuntime:
             for _, toks in row:
                 fn(params, toks)
         _sync(self.device)
-        pre = self._compile_state()
+        pre = self.cascade.shape_counts()
         out = []
         for (cfg, fn, params), row in zip(stages, calls):
             ts = []
             for b, toks in row:
                 best = min(_time_call(self.device, fn, params, toks)
                            for _ in range(repeats))
-                if self._compile_state() != pre:
+                if self.cascade.shape_counts() != pre:
                     raise RuntimeError(
                         f"stage {getattr(cfg, 'name', cfg)} ran a new shape "
-                        f"or kernel specialisation during timed repeats at "
-                        f"batch {b}: the e(b) profile would fold compile "
-                        "time into service time")
+                        f"during timed repeats at batch {b}: the e(b) "
+                        "profile would fold first-call time into service "
+                        "time")
                 ts.append((b, best))
             out.append(ts)
         self.last_stage_times = out

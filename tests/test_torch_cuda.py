@@ -60,17 +60,31 @@ def _randn(gen, shape, device, dtype=torch.float32):
     (2, 200, 200, 8, 2, 64, True, None),      # causal GQA, ragged tiles
     (1, 128, 128, 8, 1, 32, True, 100),       # MQA, causal + kv_len
     (3, 70, 90, 2, 2, 16, False, None),       # small ragged
+    (1, 256, 264, 4, 4, 128, False, None),    # the UNet at b = 1
+    (2, 130, 200, 8, 1, 128, True, None),     # MQA, causal, ragged
+    (2, 97, 150, 4, 1, 64, False, 120),       # MQA, kv_len, D 64
+    (3, 1, 264, 4, 4, 128, False, None),      # Sq = 1
+    (2, 40, 77, 4, 2, 64, True, 60),          # one tile, causal + kv_len
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KH, D,
                                     causal, kv):
+    """float32 at head dims 64 and 128 (every diffusion call) takes the
+    3xTF32 tensor-core route and holds the float32 tolerance."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(g, (B, Sq, H, D), cuda, dtype)
     k = _randn(g, (B, Sk, KH, D), cuda, dtype)
     v = _randn(g, (B, Sk, KH, D), cuda, dtype)
+    way = tflash.route(dtype, D)
+    if dtype == torch.float32:
+        assert way == ("tf32x3" if D in (64, 128) else "cuda_core")
     before = tflash.flash_attention.launches
+    routes = dict(tflash.flash_attention.route_launches)
     got = tflash.flash_attention(q, k, v, causal=causal, kv_len=kv)
     torch.cuda.synchronize()
     assert tflash.flash_attention.launches == before + 1
+    assert tflash.flash_attention.route_launches == {**routes,
+                                                     way: routes[way] + 1}
+    assert torch.isfinite(got).all()
     want = ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got, want, **FA_TOL[dtype])
@@ -105,19 +119,24 @@ def test_flash_wgmma_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D, causal,
     torch.testing.assert_close(got, want, **FA_TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 128),
-                                     (torch.float32, 64),
-                                     (torch.bfloat16, 32),
-                                     (torch.bfloat16, 16)])
-def test_flash_cuda_core_route_keeps_the_rest(cuda, dtype, D):
+@pytest.mark.parametrize("dtype,D,way", [(torch.float32, 128, "tf32x3"),
+                                         (torch.float32, 64, "tf32x3"),
+                                         (torch.float32, 32, "cuda_core"),
+                                         (torch.float32, 16, "cuda_core"),
+                                         (torch.bfloat16, 32, "cuda_core"),
+                                         (torch.bfloat16, 16, "cuda_core")])
+def test_flash_cuda_core_route_keeps_the_rest(cuda, dtype, D, way):
+    """float32 at head dims 64 and 128 goes to tf32x3; head dims 16 and
+    32 stay on CUDA cores in both dtypes."""
     g = torch.Generator(device=cuda).manual_seed(13)
     q = _randn(g, (2, 70, 4, D), cuda, dtype)
     k = _randn(g, (2, 90, 2, D), cuda, dtype)
     before = dict(tflash.flash_attention.route_launches)
     got = tflash.flash_attention(q, k, k, causal=False)
     torch.cuda.synchronize()
+    assert tflash.route(dtype, D) == way
     assert tflash.flash_attention.route_launches == {
-        **before, "cuda_core": before["cuda_core"] + 1}
+        **before, way: before[way] + 1}
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, k,
                                                             causal=False),
                                **FA_TOL[dtype])
@@ -164,8 +183,15 @@ def test_flash_wgmma_one_q_against_many_fresh_kv(cuda):
     ((8, 4, 4, 384), 8, True),        # discriminator, ragged channel block
     ((3, 6, 6, 10), 8, True),         # group shrink 10 -> 5
     ((5, 8, 24), 4, False),           # pre-flattened (B, HW, C)
+    ((8, 64, 64, 384), 8, True),      # the widest slice: cluster of 8
+    ((8, 16, 16, 512), 8, True),      # cluster of 2
+    ((4, 32, 32, 512), 8, True),      # cluster of 4
+    ((2, 128, 128, 512), 8, True),    # over 8 x 227 KB: reread
+    ((1, 300, 7, 40), 1, False),      # one group, ragged cluster rows
 ])
 def test_groupnorm_kernel_matches_plain(cuda, shape, groups, act):
+    """Every planner mode and cluster size (1, 2, 4, 8; resident and
+    reread; 16- and 4-byte copies) against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(1)
     x = _randn(g, shape, cuda) * 3 + 1
     s = torch.rand(shape[-1], generator=g, device=cuda) + 0.5
@@ -176,6 +202,51 @@ def test_groupnorm_kernel_matches_plain(cuda, shape, groups, act):
     assert tgn.fused_groupnorm.launches == before + 1
     want = ref.groupnorm_silu_ref(x, s, b, groups=groups, act=act)
     torch.testing.assert_close(got, want, **GN_TOL)
+
+
+def test_groupnorm_plans_cover_every_mode(cuda):
+    """The shapes above reach every cluster size and both modes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [tgn.plan(shape, 8, sms) for shape in (
+        (8, 32, 32, 24), (8, 16, 16, 512), (4, 32, 32, 512),
+        (8, 64, 64, 384), (2, 128, 128, 512))]
+    assert {p.cluster for p in plans} == {1, 2, 4, 8}
+    assert {p.mode for p in plans} == {"resident", "reread"}
+    assert {p.vec for p in plans} == {1, 4}
+
+
+@pytest.mark.parametrize("shape,scale_x,shift", [
+    ((8, 64, 64, 128), 1e4, 3e4),     # large |x| around a large mean
+    ((8, 16, 16, 512), 3e3, -1e5),
+    ((2, 128, 128, 512), 1e4, 0.0),   # reread mode
+])
+def test_groupnorm_large_values_stay_finite(cuda, shape, scale_x, shift):
+    """Two-pass statistics at large |x| and a SiLU pushed past exp's
+    range (biases to about -200 and 200): no NaN or Inf, and the plain
+    version's output."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(g, shape, cuda) * scale_x + shift
+    s = torch.rand(shape[-1], generator=g, device=cuda) * 4 + 0.5
+    b = torch.randn(shape[-1], generator=g, device=cuda) * 50
+    got = tgn.fused_groupnorm(x, s, b, groups=8, act=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, ref.groupnorm_silu_ref(x, s, b, groups=8, act=True), **GN_TOL)
+
+
+def test_groupnorm_unaligned_view_takes_4_byte_copies(cuda):
+    """A view one float into its storage is not 16-byte aligned: the
+    kernel copies 4 bytes at a time and gives the same output."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    flat = _randn(g, (1 + 4 * 16 * 16 * 64,), cuda)
+    x = flat[1:].view(4, 16, 16, 64)
+    s = torch.rand(64, generator=g, device=cuda) + 0.5
+    b = torch.randn(64, generator=g, device=cuda)
+    assert x.data_ptr() % 16 and tgn.plan(x.shape, 8, 132).vec == 4
+    torch.testing.assert_close(
+        tgn.fused_groupnorm(x, s, b, groups=8),
+        ref.groupnorm_silu_ref(x, s, b, groups=8), **GN_TOL)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

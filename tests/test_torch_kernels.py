@@ -266,11 +266,77 @@ def test_decode_split_plan_covers_the_cache():
 
 
 def test_flash_route_follows_dtype_and_head_dim():
+    """At head dims 64 and 128 both dtypes take tensor cores (bf16 on
+    wgmma, float32 as 3xTF32, every diffusion call); 16 and 32 stay on
+    CUDA cores."""
     assert [tflash.route(torch.bfloat16, d) for d in tflash.HEAD_DIMS] == \
         ["cuda_core", "cuda_core", "wgmma", "wgmma"]
-    assert {tflash.route(torch.float32, d) for d in tflash.HEAD_DIMS} == \
-        {"cuda_core"}
-    assert set(tflash.ROUTES) == {"wgmma", "cuda_core"}
+    assert [tflash.route(torch.float32, d) for d in tflash.HEAD_DIMS] == \
+        ["cuda_core", "cuda_core", "tf32x3", "tf32x3"]
+    assert set(tflash.ROUTES) == {"wgmma", "tf32x3", "cuda_core"}
+
+
+@pytest.mark.parametrize("B,H,Sq,want", [
+    (8, 4, 256, 2),      # the UNet at b = 8: 128 blocks of 64 rows
+    (4, 4, 256, 4),      # b = 4: 128 blocks of 32 rows
+    (2, 4, 256, 8),      # b = 2: 128 blocks of 16 rows
+    (1, 4, 256, 8),      # b = 1: 64 blocks of 16 rows, not 16 of 64
+    (3, 8, 1, 8),        # Sq = 1: one row a block whatever the split
+    (4, 32, 512, 2),     # many (batch, head) pairs
+])
+def test_flash_tf32_key_groups_fill_the_card(B, H, Sq, want):
+    kw = tflash.plan_key_groups(B, H, Sq, 132)
+    assert kw == want and kw in tflash.KEY_GROUPS
+    blocks = B * H * -(-Sq // (128 // kw))
+    # the fewest groups that reach 3/4 of the SMs, where any does
+    fewer = [k for k in tflash.KEY_GROUPS if k < kw]
+    assert all(B * H * -(-Sq // (128 // k)) < 99 for k in fewer)
+    assert blocks >= 99 or kw == tflash.KEY_GROUPS[-1]
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, split):
+    """a @ b in float32 from TF32 operands: hi*hi + hi*lo + lo*hi
+    (``split``) or hi*hi alone. Each product of two TF32 values is exact
+    in float32, as in the tensor core; sums round in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if split:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = ah @ bl + al @ bh + out
+    return out
+
+
+def _attention_tf32(q, k, v, split):
+    """The tf32x3 kernel's arithmetic in plain torch (non-causal):
+    both products from TF32 operands, softmax and P in float32, P split
+    like the others."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    s = _mm(qt, kt.transpose(-1, -2), split) / math.sqrt(q.shape[-1])
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _mm(p, vt, split) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.transpose(1, 2)
+
+
+def test_tf32x3_split_keeps_float32_accuracy_at_the_unet_shape():
+    """The UNet's attention (q (8,256,4,128), k/v (8,264,4,128)) through
+    the 3xTF32 split against a float64 attention: well inside the float32
+    tolerance of 1e-4 (``FLASH_TOL`` in chip_smoke.py). One TF32 product
+    alone is not, which is why the kernel takes three."""
+    q, k, v = (_torch(a) for a in _normal(
+        16, (8, 256, 4, 128), (8, 264, 4, 128), (8, 264, 4, 128)))
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                    causal=False)
+    err3 = (_attention_tf32(q, k, v, True).double() - exact).abs().max()
+    err1 = (_attention_tf32(q, k, v, False).double() - exact).abs().max()
+    assert err3 < 1e-5, err3
+    assert err1 > 1e-4, err1
 
 
 @pytest.mark.parametrize("residual", [False, True])
@@ -440,8 +506,7 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     ops.mamba_scan(*(_torch(a) for a in _mamba_inputs(6, 1, 3, 8, 4)),
                    torch.zeros(1, 8, 4))
     assert ops.launch_counts() == NO_LAUNCHES
-    assert ops.route_counts() == {"wgmma": 0, "cuda_core": 0}
-    assert ops.specialization_count() == 0
+    assert ops.route_counts() == {"wgmma": 0, "tf32x3": 0, "cuda_core": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -489,8 +554,9 @@ def test_kernel_modules_import_without_triton_or_nvcc():
             "flash_attention, build, decode_attention, fused_rmsnorm, "
             "swiglu, mlstm_chunk, mamba_scan\n"
             f"assert ops.launch_counts() == {NO_LAUNCHES!r}\n"
-            "assert fused_groupnorm.tl is None and "
-            "flash_attention._FN is None and flash_attention._FN_TC is None\n"
+            "assert fused_groupnorm._FN is None and "
+            "flash_attention._FN is None and flash_attention._FN_TC is None "
+            "and flash_attention._FN_TF32 is None\n"
             "assert fused_rmsnorm.tl is None and swiglu.tl is None and "
             "decode_attention._FN is None\n"
             "assert mlstm_chunk._FN is None and mamba_scan._FN is None\n")
@@ -501,13 +567,89 @@ def test_kernel_modules_import_without_triton_or_nvcc():
     assert res.returncode == 0, res.stderr
 
 
-def test_groupnorm_launch_config_covers_path_shapes():
-    # full-width UNet top level and the discriminator's widest head
-    assert tgn.launch_config((8, 64, 64, 128), 8) == (8, 4096, 16, 128, 16)
-    assert tgn.launch_config((8, 4, 4, 384), 8) == (8, 16, 48, 16, 64)
-    # group shrink 10 -> 5, ragged channel block
-    assert tgn.launch_config((2, 6, 6, 10), 8) == (5, 36, 2, 64, 2)
+# every GroupNorm shape of one full-width UNet and discriminator forward
+# (b = 8, g = 8) and the cluster the planner gives it on 132 SMs
+GN_PATH_PLANS = [
+    ((4, 4, 96), 1), ((4, 4, 256), 1), ((4, 4, 384), 1), ((8, 8, 64), 1),
+    ((8, 8, 192), 1), ((8, 8, 256), 1), ((16, 16, 48), 1),
+    ((16, 16, 96), 1), ((16, 16, 192), 1), ((16, 16, 256), 1),
+    ((16, 16, 512), 2), ((16, 16, 768), 2), ((16, 16, 1024), 2),
+    ((32, 32, 24), 1), ((32, 32, 96), 2), ((32, 32, 128), 2),
+    ((32, 32, 256), 2), ((32, 32, 384), 2), ((32, 32, 512), 2),
+    ((32, 32, 768), 2), ((64, 64, 128), 2), ((64, 64, 256), 8),
+    ((64, 64, 384), 8),
+]
 
+
+def _check_plan_covers(p, shape):
+    """The clusters cover HW exactly, no block empty, and each block's
+    share (rows and the group's scale and bias) fits its 227 KB."""
+    assert p.groups * p.cg == shape[-1]
+    assert p.hw == math.prod(shape[1:-1])
+    assert p.cluster in tgn.CLUSTER_SIZES
+    assert (p.cluster - 1) * p.rows < p.hw <= p.cluster * p.rows
+    assert 1 <= p.chunk_rows <= p.rows
+    assert p.smem == 16 * ((2 * p.cg + 3) // 4) + p.chunk_rows * p.cg * 4
+    assert p.smem <= tgn.SMEM_BYTES < 227 * 1024
+    assert p.vec == (4 if p.cg % 4 == 0 else 1)
+
+
+@pytest.mark.parametrize("hwc,cluster", GN_PATH_PLANS)
+def test_groupnorm_plan_covers_path_shapes(hwc, cluster):
+    """Every path shape holds x in shared memory (one read), in the
+    cluster predicted: the fewest blocks that fit, doubled while the
+    blocks need a second wave of the SMs or twice as many still fit one
+    wave and each holds more than 32 KB."""
+    shape = (8, *hwc)
+    p = tgn.plan(shape, 8, 132)
+    _check_plan_covers(p, shape)
+    assert p.mode == "resident" and p.chunk_rows == p.rows
+    assert p.cluster == cluster
+    # the widest slice, (64 x 64) x 48 channels = 768 KB, is 96 KB a block
+    if hwc == (64, 64, 384):
+        assert (p.rows * p.cg * 4, p.smem) == (96 * 1024, 98688)
+
+
+@pytest.mark.parametrize("shape,groups,want", [
+    # 4 MB a (sample, group): over 8 x 227 KB, so chunked, x read again
+    ((2, 128, 128, 512), 8, dict(cluster=8, mode="reread", vec=4)),
+    # group shrink 10 -> 5, CG = 2: 4-byte copies, one block
+    ((3, 6, 6, 10), 8, dict(groups=5, cluster=1, mode="resident", vec=1)),
+    # the discriminator's stem, CG = 3
+    ((8, 32, 32, 24), 8, dict(cg=3, cluster=1, mode="resident", vec=1)),
+    # pre-flattened (B, HW, C)
+    ((5, 8, 24), 4, dict(groups=4, cg=6, cluster=1, vec=1)),
+    # one sample of the widest slice: the fit alone asks for 4 blocks,
+    # filling the card for 8
+    ((1, 64, 64, 384), 8, dict(cluster=8, rows=512, mode="resident")),
+])
+def test_groupnorm_plan_modes(shape, groups, want):
+    p = tgn.plan(shape, groups, 132)
+    _check_plan_covers(p, shape)
+    assert {k: getattr(p, k) for k in want} == want
+    if p.mode == "reread":
+        assert p.chunk_rows < p.rows
+        assert (p.chunk_rows + 1) * p.cg * 4 + 16 * ((2 * p.cg + 3) // 4) \
+            > tgn.SMEM_BYTES
+
+
+def test_groupnorm_plan_fits_before_it_fills():
+    """The cluster is never below the fewest blocks whose shares fit, and
+    grows past that only for the card: a 128 KB slice of 64 (sample,
+    group)s stays one block each on 64 SMs (one wave) and takes 2 on
+    132 (SMs left idle); the widest slice (fit: 4 blocks of 192 KB, one
+    an SM) takes 8 for its second wave."""
+    for sms in (1, 64, 132, 1000):
+        for shape in ((8, 16, 16, 1024), (8, 64, 64, 384), (8, 64, 64, 128)):
+            p = tgn.plan(shape, 8, sms)
+            fit = next(c for c in tgn.CLUSTER_SIZES
+                       if -(-p.hw // c) * p.cg * 4 + 16 * ((2 * p.cg + 3) // 4)
+                       <= tgn.SMEM_BYTES)
+            assert p.cluster >= fit
+    assert tgn.plan((8, 16, 16, 1024), 8, 64).cluster == 1
+    assert tgn.plan((8, 16, 16, 1024), 8, 132).cluster == 2
+    assert tgn.plan((8, 64, 64, 384), 8, 132).cluster == 8
+    assert tgn.plan((4, 32, 32, 512), 8, 132).cluster == 4
 
 
 def test_rmsnorm_launch_config_covers_path_widths():
@@ -520,8 +662,9 @@ def test_rmsnorm_launch_config_covers_path_widths():
 def test_build_targets_hopper_and_keys_on_source():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
-    names = ("flash_attention", "flash_attention_tc", "decode_attention",
-             "mlstm_chunk", "mamba_scan")
+    names = ("flash_attention", "flash_attention_tc", "flash_attention_tf32",
+             "fused_groupnorm", "decode_attention", "mlstm_chunk",
+             "mamba_scan")
     for name in names:
         p = build.library_path(name)
         assert p.parent == build.BUILD_DIR and p.suffix == ".so"
