@@ -17,8 +17,8 @@ Phases, each of which fails the run if it fails:
    ``cuobjdump``, its SASS's count of tensor-core (``HGMMA``, ``HMMA``)
    and asynchronous copy (``UTMALDG``, ``LDGSTS``) instructions; the bf16
    tensor-core flash kernel must hold ``HGMMA`` and ``UTMALDG``, the
-   float32 one ``HMMA`` and ``UTMALDG``, decode attention ``HMMA`` and
-   ``LDGSTS``, GroupNorm ``LDGSTS``.
+   float32 one ``HMMA`` and ``UTMALDG``, decode attention and the mLSTM
+   ``HMMA`` and ``LDGSTS``, GroupNorm and the selective scan ``LDGSTS``.
 
 Diffusion path (slice 1):
 
@@ -75,26 +75,32 @@ without RoPE, MoE), each after the previous model's tensors are freed:
 9. Random bfloat16 weights (xlstm-125m at full depth; Jamba at 16 of
    its 32 layers, 2 of 4 periods, 52 GB): the same against the plain
    versions (relative 5e-2), with every kernel call recorded.
-10. The new kernel against its plain version at the recorded shapes,
-    held in float32 and in the path's dtypes, timed in the latter
+10. The recurrence kernel against its plain version at the recorded
+    shapes, held in float32 and in the path's dtypes, timed in the latter
     (``cuda_ms``), beside its bound; no single PyTorch call computes
-    either recurrence, so no library time. Jamba's flash and decode
-    attention calls (KH 8, G 4) are held and timed there as Yi-9B's are
-    in 6.
+    either recurrence, so no library time. Each recorded call must have
+    taken its length's route (``REC_ROUTES``: the prompt ``chunkwise`` /
+    ``scan``, a decode step ``recurrent`` / ``step``); the chunkwise
+    mLSTM's bound counts its products on TF32 tensor cores at float32
+    accuracy, and the scan's prefill logs its special-function floor
+    beside its bytes bound. Jamba's flash and decode attention calls (KH
+    8, G 4) are held and timed there as Yi-9B's are in 6.
 11. The served run, as in 7: 4 prompts of 512 tokens, 32 greedy decode
     steps (Jamba's attention cache 1024 rows), launch counters zeroed
-    just before and read just after and equal to the path's; prefill
-    time, median decode step against its bytes bound, ``torch.profiler``
-    traces of one decode step and one prefill.
+    just before and read just after and equal to the path's, and the
+    recurrence's launches by route equal to one prompt and 32 steps a
+    layer; prefill time, median decode step against its bytes bound,
+    ``torch.profiler`` traces of one decode step and one prefill.
 
 12. The wall time and the card's line again, one JSON line listing
     every ported kernel, with its launches by path (diffusion, lm,
     xlstm, jamba) and, for flash attention, its three routes (``tf32x3``
     over one UNet forward, ``wgmma`` over one Yi-9B prefill, ``cuda_core``
-    at the UNet's inputs) with their times and launches; the two kernels
-    redesigned last (flash attention's float32 route, GroupNorm) carry
-    ``was_ms``, their earlier kernel's time where this run measured it;
-    then, last, the result line ``{"ok": true, "device": {...}}``.
+    at the UNet's inputs) and, for the mLSTM and the selective scan,
+    their two routes, with their times and launches; flash attention's
+    float32 route and GroupNorm carry ``was_ms``, their earlier kernel's
+    time where this run measured it; then, last, the result line
+    ``{"ok": true, "device": {...}}``.
 
 Every served run also checks flash attention's launches by route: the
 diffusion path's all on ``tf32x3`` (float32, head dim 128), the LM
@@ -142,7 +148,9 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
 SASS_NEEDS = {"flash_attention_tc": ("HGMMA", "UTMALDG"),
               "flash_attention_tf32": ("HMMA", "UTMALDG"),
               "fused_groupnorm": ("LDGSTS",),
-              "decode_attention": ("HMMA", "LDGSTS")}
+              "decode_attention": ("HMMA", "LDGSTS"),
+              "mlstm_chunk": ("HMMA", "LDGSTS"),
+              "mamba_scan": ("LDGSTS",)}
 # kernel calls per forward on the full-width path
 PATH_GN = {"unet": 41, "disc": 22}      # 35 of the UNet's with SiLU
 PATH_FA = {"unet": 6, "disc": 0}
@@ -164,6 +172,10 @@ JAMBA_FP32_PATTERN = (("mamba", "moe"), ("attn", "mlp"))
 # 512 steps), bf16 outputs at one bf16 rounding
 REC_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
            "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# the route each served recurrence call takes: a prompt (T > 1) and a
+# decode step (T = 1)
+REC_ROUTES = {"mlstm": {"prompt": "chunkwise", "step": "recurrent"},
+              "mamba": {"prompt": "scan", "step": "step"}}
 # a plain recurrence is a host loop of ~15 launches a step: time it over
 # fewer calls
 PLAIN_REC_ITERS = 3
@@ -836,8 +848,8 @@ def plain_ops():
 @contextlib.contextmanager
 def recorded_calls(calls):
     """Appends (kind, shapes, dtype, extra) of every LM kernel call (the
-    recurrences' too) to ``calls`` and passes the call on to the
-    kernel."""
+    recurrences' too, whose extra ends with the route the call took) to
+    ``calls`` and passes the call on to the kernel."""
     from repro_torch.kernels import ops
     saved = {name: getattr(ops, name) for name in ops.PLAIN}
 
@@ -864,15 +876,28 @@ def recorded_calls(calls):
                       tuple(valid_len.tolist())))
         return saved["decode_attention"](q, k, v, valid_len)
 
+    def took(kernel, call):
+        """``call``'s result and the route it launched ``kernel`` on (None
+        where no route moved: a plain version on a CPU tensor)."""
+        before = ops.route_counts(kernel)
+        out = call()
+        moved = [w for w, c in ops.route_counts(kernel).items()
+                 if c != before[w]]
+        return out, (moved[0] if moved else None)
+
     def mlstm(q, k, v, i_pre, f_pre, C, n, m):
+        h, way = took("mlstm_chunk", lambda: saved["mlstm_chunk"](
+            q, k, v, i_pre, f_pre, C, n, m))
         calls.append(("mlstm", (tuple(q.shape), tuple(v.shape)), dt(q),
-                      (dt(i_pre),)))
-        return saved["mlstm_chunk"](q, k, v, i_pre, f_pre, C, n, m)
+                      (dt(i_pre), way)))
+        return h
 
     def mamba(u, dt_, A, B, C, D, h):
+        y, way = took("mamba_scan", lambda: saved["mamba_scan"](
+            u, dt_, A, B, C, D, h))
         calls.append(("mamba", (tuple(u.shape), tuple(A.shape)), dt(u),
-                      (dt(dt_), dt(B), dt(C))))
-        return saved["mamba_scan"](u, dt_, A, B, C, D, h)
+                      (dt(dt_), dt(B), dt(C), way)))
+        return y
     ops.fused_rmsnorm, ops.swiglu = rms, swiglu
     ops.flash_attention, ops.decode_attention = flash, decode
     ops.mlstm_chunk, ops.mamba_scan = mlstm, mamba
@@ -1286,6 +1311,18 @@ def serve_lm(torch, cfg, params):
         fail(f"{cfg.name} launch counts {counts} != expected {want}")
     routes = check_routes(torch, cfg.name, cfg.dtype, cfg.resolved_head_dim,
                           "wgmma", counts["flash_attention"])
+    rec_routes = {}
+    for name, kind in (("mlstm_chunk", "mlstm"), ("mamba_scan", "mamba")):
+        layers = sum(mixer == kind for mixer, _ in cfg.flat_pattern())
+        if not layers:
+            continue
+        rec_routes[name] = ops.route_counts(name)
+        exp = {REC_ROUTES[kind]["prompt"]: layers,
+               REC_ROUTES[kind]["step"]: layers * LM_STEPS}
+        log(f"{name} launches by route over the {cfg.name} run: "
+            f"{rec_routes[name]} (expected {exp})")
+        if rec_routes[name] != exp:
+            fail(f"{cfg.name}: {name} routes {rec_routes[name]} != {exp}")
     if not bool(torch.stack(finite).all()) or logits.shape != (
             LM_BATCH, cfg.vocab_size):
         fail(f"{cfg.name} slice: logits not finite or of the wrong shape")
@@ -1355,7 +1392,8 @@ def serve_lm(torch, cfg, params):
                     "state_bytes": state_bytes,
                     "cache_len": T,
                     "generated": gen.tolist(), "profile_decode": prof,
-                    "profile_prefill": prof_prefill, "flash_routes": routes}
+                    "profile_prefill": prof_prefill, "flash_routes": routes,
+                    "rec_routes": rec_routes}
 
 
 def lm_phase(torch):
@@ -1399,12 +1437,12 @@ def lm_phase(torch):
 # the recurrent-state paths: xlstm-125m and Jamba
 # ---------------------------------------------------------------------------
 def _rec_case(torch, g, kind, shape, dt, extra, fp32):
-    """(kernel call, plain call, bytes, flops, the kernel's state, the
-    plain version's state) of one recorded recurrence call on fresh
-    inputs, in the path's dtypes or (``fp32``) all float32. The state is
-    zero (m = -inf) for a prompt and one reached mid-sequence for a
-    decode step; each call of the pair gets its own copy, since both
-    overwrite it."""
+    """(kernel call, plain call, bytes, flops, the peak they run at
+    (``PEAK_FLOPS_S``), the kernel's state, the plain version's state) of
+    one recorded recurrence call on fresh inputs, in the path's dtypes or
+    (``fp32``) all float32. The state is zero (m = -inf) for a prompt and
+    one reached mid-sequence for a decode step; each call of the pair
+    gets its own copy, since both overwrite it."""
     from repro_torch.kernels import mamba_scan as tmamba
     from repro_torch.kernels import mlstm_chunk as tmlstm
     from repro_torch.kernels import ref
@@ -1433,13 +1471,21 @@ def _rec_case(torch, g, kind, shape, dt, extra, fp32):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * el \
             + 2 * ip.numel() * ip.element_size() \
             + 2 * sum(t.numel() * 4 for t in state)
-        # per step and head: C's update and read-out (a multiply and two
-        # FMAs an element), n's (an FMA and a multiply, an FMA a row),
-        # ig v and the division (a column each)
+        if tmlstm.route(T) == "chunkwise":
+            # on tensor cores: C's update and read-out, 2 dk dv a step and
+            # head each, at float32 accuracy (3 TF32 products; 2 where the
+            # other operand is a bfloat16 input, exact in TF32)
+            flops = 4.0 * dk * dv * B * T * H * (3 if q.dtype == f32 else 2)
+            return (lambda: tmlstm.mlstm_chunk(q, k, v, ip, fp, *mine),
+                    lambda: ref.mlstm_chunk_ref(q, k, v, ip, fp, *plain),
+                    nbytes, flops, "tf32", mine, plain)
+        # one step on the CUDA cores, per head: C's update and read-out (a
+        # multiply and two FMAs an element), n's (an FMA and a multiply,
+        # an FMA a row), ig v and the division (a column each)
         flops = (5.0 * dk * dv + 5 * dk + 2 * dv) * B * T * H
         return (lambda: tmlstm.mlstm_chunk(q, k, v, ip, fp, *mine),
                 lambda: ref.mlstm_chunk_ref(q, k, v, ip, fp, *plain),
-                nbytes, flops, mine, plain)
+                nbytes, flops, "float32", mine, plain)
     (Bt, T, E), (_, N) = shape
     u = rand((Bt, T, E), typed(dt), 0.5)
     dtv = (torch.nn.functional.softplus(rand((Bt, T, E))) * 0.1).to(
@@ -1456,16 +1502,21 @@ def _rec_case(torch, g, kind, shape, dt, extra, fp32):
     flops = (7.0 * N + 3) * Bt * T * E
     return (lambda: tmamba.mamba_scan(u, dtv, A, Bm, Cm, D, mine),
             lambda: ref.mamba_scan_ref(u, dtv, A, Bm, Cm, D, plain),
-            nbytes, flops, [mine], [plain])
+            nbytes, flops, "float32", [mine], [plain])
 
 
 def check_recurrent_kernel(torch, calls, arch):
     """The slice's recurrence against its plain version at the recorded
     shapes: held in float32 and in the path's dtypes (bf16 inputs, fp32
-    state), outputs and final states; timed in the path's dtypes. The
-    operations are fp32 (the state math), so the bound takes the fp32
-    peak. Returns the kernel-line entry (times summed over one prefill
-    and one decode step) and the rows."""
+    state), outputs and final states; timed in the path's dtypes. Each
+    recorded call must have taken its length's route (``REC_ROUTES``).
+    The bound takes the peak of the route's arithmetic: the chunkwise
+    mLSTM's products on TF32 tensor cores at float32 accuracy, the rest on
+    the fp32 CUDA cores; the selective scan's prefill also logs its
+    special-function floor. Returns the kernel-line entry (times summed
+    over one prefill and one decode step, and per route) and the rows."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import mamba_scan as tmamba
     name, kind, src, replaces = {
         "xlstm-125m": ("mlstm_chunk", "mlstm",
                        "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
@@ -1478,8 +1529,14 @@ def check_recurrent_kernel(torch, calls, arch):
                    if k == kind)
     rows, worst = [], 0.0
     for (_, shape, dt, extra), n in sorted(mult.items(), key=str):
+        T, way = shape[0][1], extra[-1]
+        want_way = REC_ROUTES[kind]["step" if T == 1 else "prompt"]
+        log(f"{name} {shape}: x{n} took route {way} (expected {want_way})")
+        if way != want_way:
+            fail(f"{name} {shape}: a served call took route {way}, not "
+                 f"{want_way}")
         for fp32 in (True, False):
-            kernel, plain, nbytes, flops, st_k, st_p = _rec_case(
+            kernel, plain, nbytes, flops, peak, st_k, st_p = _rec_case(
                 torch, g, kind, shape, dt, extra, fp32)
             got, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -1492,34 +1549,61 @@ def check_recurrent_kernel(torch, calls, arch):
                 torch.testing.assert_close(a, b, **REC_TOL["float32"])
             what = f"{name} {shape} {'float32' if fp32 else (dt, extra)} x{n}"
             if fp32:
-                worst = max(worst, err)
+                worst, err32 = max(worst, err), err
                 log(f"{what}: max|err| {err:.3e} (tol {tol})")
                 continue
-            b_ms, b_by = bound_ms(nbytes, flops, "float32")
+            b_ms, b_by = bound_ms(nbytes, flops, peak)
             row = {"kind": kind, "shape": shape, "dtype": dt, "extra": extra,
-                   "per_path": n, "max_abs_err": err,
+                   "route": way, "per_path": n, "max_abs_err": err,
+                   "max_abs_err_float32": err32,
                    "ms": cuda_ms(torch, kernel),
                    "plain_ms": cuda_ms(torch, plain, iters=PLAIN_REC_ITERS,
                                        reps=1),
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            floor = ""
+            if kind == "mamba" and T > 1:
+                (Bt, _, E), (_, N) = shape
+                row["sfu_floor_ms"] = tmamba.sfu_floor_ms(
+                    Bt, T, E, N, sm_count(torch.device(DEV)), max_sm_ghz())
+                floor = (f"; special-function floor of its "
+                         f"{Bt * T * E * N / 1e6:.0f} M exponentials "
+                         f"{row['sfu_floor_ms']:.4f} ms")
             rows.append(row)
             log(f"{what} (tol {tol}): max|err| {err:.3e}; kernel "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                 f"library none, bound {b_ms:.4f} ms ({b_by}; "
-                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP fp32)")
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the "
+                f"{peak} peak){floor}")
     tot = {key: sum(r["per_path"] * r[key] for r in rows)
            for key in ("ms", "plain_ms", "bound_ms")}
     ops_ms = sum(r["per_path"] * r["bound_ms"] for r in rows
                  if r["bound_by"] == "operations")
+    routes = {}
+    for r in rows:       # one served shape a route: its per-launch numbers
+        routes[r["route"]] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "sfu_floor_ms") if k in r}
+        routes[r["route"]].update(max_abs_err=r["max_abs_err_float32"],
+                                  per=f"one launch at {r['shape']}")
     entry = {"name": name, "route": "cuda", "source": src,
              "replaces": replaces, "max_abs_err": worst, **tot,
              "library_ms": None,
              "bound_by": "operations" if 2 * ops_ms >= tot["bound_ms"]
-             else "bytes",
+             else "bytes", "routes": routes,
              "per": f"one {arch} prefill ({LM_BATCH}x{LM_PROMPT}) and one "
                     f"decode step, path dtypes: "
                     f"{sum(r['per_path'] for r in rows)} launches"}
     return entry, rows
+
+
+def max_sm_ghz() -> float:
+    """The card's highest SM clock (nvidia-smi), GHz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) / 1e3
 
 
 def recurrent_phase(torch, arch):
@@ -1641,6 +1725,11 @@ def main(argv=None) -> int:
         "bound_ms": fa_entry["was_bound_ms"], "bound_by": "operations",
         "library_ms": fa_entry["library_ms"], "per": fa_entry["per"],
         "launches": sum(r["cuda_core"] for r in routes.values())}
+    for e in rec_entries:      # the recurrences' launches by route
+        for way, r in e["routes"].items():
+            r["launches"] = sum(
+                details[a]["slice"]["rec_routes"].get(e["name"], {}).get(
+                    way, 0) for a in REC_ARCHS)
     kernels = []
     for e in (fa_entry, gn_entry, *lm_entries.values(), *rec_entries):
         by_path = {"diffusion": counts[e["name"]], "lm": lm_counts[e["name"]],

@@ -4,7 +4,9 @@ A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, or raises. No path falls back from a
 kernel to its plain version. Each kernel wrapper keeps a plain integer
 launch counter (``<wrapper>.launches``), moved only where the kernel is
-launched; ``launch_counts``/``reset_launch_counts`` read and zero them.
+launched; ``launch_counts``/``reset_launch_counts`` read and zero them,
+and a kernel with more than one route counts per route as well
+(``route_counts``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ KERNELS = {"flash_attention": _flash.flash_attention,
            "swiglu": _swiglu.swiglu,
            "mlstm_chunk": _mlstm.mlstm_chunk,
            "mamba_scan": _mamba.mamba_scan}
+# the kernels with more than one route, each counting its launches by
+# route (``route_counts``)
+ROUTED = {"flash_attention": _flash.flash_attention,
+          "mlstm_chunk": _mlstm.mlstm_chunk,
+          "mamba_scan": _mamba.mamba_scan}
 # each kernel's plain PyTorch version: what a CPU tensor runs, and what
 # a kernel is held against on the card
 PLAIN = {"flash_attention": ref.flash_attention_ref,
@@ -118,16 +125,18 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def route_counts() -> Dict[str, int]:
-    """Flash attention's launches by kernel: at head dims 64 and 128
-    ``wgmma`` (bf16) and ``tf32x3`` (float32), and ``cuda_core`` (the
-    rest)."""
-    return dict(_flash.flash_attention.route_launches)
+def route_counts(kernel: str = "flash_attention") -> Dict[str, int]:
+    """Launches by route of a kernel with more than one (``ROUTED``):
+    flash attention's (the default) at head dims 64 and 128 ``wgmma``
+    (bf16) and ``tf32x3`` (float32), ``cuda_core`` for the rest; the
+    mLSTM's ``chunkwise`` (T > 1) and ``recurrent`` (T = 1); the
+    selective scan's ``scan`` (T > 1) and ``step`` (T = 1)."""
+    return dict(ROUTED[kernel].route_launches)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    for way in _flash.flash_attention.route_launches:
-        _flash.flash_attention.route_launches[way] = 0
-
+    for fn in ROUTED.values():
+        for way in fn.route_launches:
+            fn.route_launches[way] = 0

@@ -542,19 +542,26 @@ def _mlstm_inputs(g, cuda, dtype, B, T, H, dk, dv, warm):
 @pytest.mark.parametrize("B,T,H,dk,dv,warm", [
     (4, 512, 4, 384, 384, False),   # xlstm-125m prefill: dh 384, m = -inf
     (4, 1, 4, 384, 384, True),      # decode: one step, mid-sequence state
-    (2, 13, 2, 384, 384, True),     # T not a multiple of the 8-step chunk
+    (2, 13, 2, 384, 384, True),     # T not a multiple of the 32-step chunk
     (3, 21, 2, 100, 72, False),     # dk, dv not multiples of the tiles
     (2, 16, 2, 8, 8, True),         # the JAX kernel test's widths
+    (3, 1, 2, 100, 72, True),       # decode, ragged: a cluster of 6
+    (2, 1, 2, 16, 6, True),         # decode, dv not a multiple of 4
+    (1, 70, 1, 384, 384, True),     # prefill from a mid-sequence state
 ])
 def test_mlstm_kernel_matches_plain(cuda, dtype, B, T, H, dk, dv, warm):
+    """Both routes: ``recurrent`` for one step, ``chunkwise`` else."""
     g = torch.Generator(device=cuda).manual_seed(8)
     q, k, v, ip, fp, C, n, m = _mlstm_inputs(g, cuda, dtype, B, T, H, dk,
                                              dv, warm)
     want_state = [t.clone() for t in (C, n, m)]
     before = tmlstm.mlstm_chunk.launches
+    way = tmlstm.route(T)
+    before_way = tmlstm.mlstm_chunk.route_launches[way]
     got = tmlstm.mlstm_chunk(q, k, v, ip, fp, C, n, m)
     torch.cuda.synchronize()
     assert tmlstm.mlstm_chunk.launches == before + 1
+    assert tmlstm.mlstm_chunk.route_launches[way] == before_way + 1
     want = ref.mlstm_chunk_ref(q, k, v, ip, fp, *want_state)
     assert got.dtype == dtype and got.shape == v.shape
     assert torch.isfinite(got).all()
@@ -632,16 +639,23 @@ F32, BF16 = torch.float32, torch.bfloat16
     (2, 45, 300, 16, (F32, F32, F32, F32), True),        # ragged T and E
     (1, 32, 16, 4, (F32, F32, F32, F32), False),         # JAX kernel test
     (2, 64, 32, 8, (BF16, BF16, F32, BF16), True),       # mixed dtypes
+    (3, 1, 300, 16, (F32, BF16, BF16, F32), True),       # decode, ragged E
+    (2, 1, 32, 8, (BF16, F32, F32, BF16), True),         # decode, N = 8
+    (40, 1, 64, 16, (BF16, F32, BF16, BF16), True),      # decode, 40 rows
 ])
 def test_mamba_kernel_matches_plain(cuda, Bt, T, E, N, dtypes, warm):
+    """Both routes: ``step`` for one step, ``scan`` else."""
     g = torch.Generator(device=cuda).manual_seed(10)
     u, dt, A, Bm, Cm, D, h = _mamba_inputs(g, cuda, Bt, T, E, N, dtypes,
                                            warm)
     want_h = h.clone()
     before = tmamba.mamba_scan.launches
+    way = tmamba.route(T)
+    before_way = tmamba.mamba_scan.route_launches[way]
     got = tmamba.mamba_scan(u, dt, A, Bm, Cm, D, h)
     torch.cuda.synchronize()
     assert tmamba.mamba_scan.launches == before + 1
+    assert tmamba.mamba_scan.route_launches[way] == before_way + 1
     want = ref.mamba_scan_ref(u, dt, A, Bm, Cm, D, want_h)
     assert got.dtype == u.dtype and got.shape == u.shape
     torch.testing.assert_close(got, want, **REC_TOL[u.dtype])
@@ -657,6 +671,16 @@ def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
                            torch.zeros(1, 2, 400, **z), torch.zeros(1, 2,
                                                                     **z))
     q = torch.zeros(1, 4, 2, 16, **z)
+    with pytest.raises(ValueError, match="dv=400"):            # dv > 384
+        tmlstm.mlstm_chunk(q, q, torch.zeros(1, 4, 2, 400, **z), g, g,
+                           torch.zeros(1, 2, 16, 400, **z),
+                           torch.zeros(1, 2, 16, **z), torch.zeros(1, 2,
+                                                                   **z))
+    with pytest.raises(ValueError, match="k dtype"):          # q, k differ
+        tmlstm.mlstm_chunk(q, q.bfloat16(), q, g, g,
+                           torch.zeros(1, 2, 16, 16, **z),
+                           torch.zeros(1, 2, 16, **z), torch.zeros(1, 2,
+                                                                   **z))
     with pytest.raises(ValueError, match="float32"):
         tmlstm.mlstm_chunk(q, q, q, g, g, torch.zeros(1, 2, 16, 16,
                                                       device=cuda).bfloat16(),

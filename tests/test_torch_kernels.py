@@ -423,7 +423,10 @@ def test_mlstm_plain_from_state_matches_jax_scan(B, T, H, dh, dtype):
     jh, jst = jax_mlstm_scan(*(_jax(a, dtype) for a in (q, k, v)), _jax(ip),
                              _jax(fp), dict(zip("Cnm", (_jax(a)
                                                         for a in st))))
-    state = [_torch(a) for a in st]
+    # torch gets its own copy of the state: ``from_numpy`` would share
+    # ``st``'s memory, which the JAX call above may still be reading
+    # (asynchronous dispatch) while the kernel overwrites it in place
+    state = [_torch(a.copy()) for a in st]
     got = ops.mlstm_chunk(*(_torch(a, dtype) for a in (q, k, v)),
                           _torch(ip), _torch(fp), *state)
     assert got.dtype == getattr(torch, dtype)
@@ -469,7 +472,7 @@ def test_mamba_plain_from_state_matches_jax_scan(Bt, T, E, N, dtype):
     jy, jh = jax_selective_scan(_jax(u, dtype), _jax(dt), _jax(A),
                                 _jax(B, dtype), _jax(C, dtype), _jax(D),
                                 h0=_jax(h0))
-    h = _torch(h0)
+    h = _torch(h0.copy())  # its own copy, as for the mLSTM state above
     got = ops.mamba_scan(_torch(u, dtype), _torch(dt), _torch(A),
                          _torch(B, dtype), _torch(C, dtype), _torch(D), h)
     assert got.dtype == getattr(torch, dtype)
@@ -486,6 +489,260 @@ def test_mamba_kernel_takes_column_slices_of_one_projection():
     assert tmamba._row_stride(proj.contiguous()) == 40
     assert tmamba._row_stride(proj[..., ::2]) is None
     assert tmamba._row_stride(proj[:, ::2]) is None
+
+
+# ---------------------------------------------------------------------------
+# What the recurrent kernels' designs rest on: the mLSTM's chunkwise form
+# (gates, 3xTF32 products), the selective scan's polynomial exp2, and the
+# routes and launch plans
+# ---------------------------------------------------------------------------
+def _gate_chain(f_pre, i_pre, m0, chunk):
+    """The chunkwise kernel's gates in plain torch: each chunk's
+    log-sigmoids at once, then the max-plus recurrence m = max(lf + m, i)
+    step by step, carried from chunk to chunk. f_pre, i_pre: (B, T, H);
+    m0: (B, H). Returns m_t (B, T, H)."""
+    lf = torch.nn.functional.logsigmoid(f_pre.float())
+    ip, m, out = i_pre.float(), m0.clone(), []
+    for t0 in range(0, f_pre.shape[1], chunk):
+        for t in range(t0, min(t0 + chunk, f_pre.shape[1])):
+            m = torch.maximum(lf[:, t] + m, ip[:, t])
+            out.append(m)
+    return torch.stack(out, dim=1)
+
+
+def _tree_max_plus(f_pre, i_pre, m0):
+    """The same m_t by an associative (Hillis-Steele) scan of the pairs
+    (a, b) -> (a1 + a2, max(b1 + a2, b2)): the adds regrouped."""
+    a = torch.nn.functional.logsigmoid(f_pre.float())
+    b = i_pre.float().clone()
+    step = 1
+    while step < a.shape[1]:
+        a2, b2 = a.clone(), b.clone()
+        a2[:, step:] = a[:, :-step] + a[:, step:]
+        b2[:, step:] = torch.maximum(b[:, :-step] + a[:, step:], b[:, step:])
+        a, b, step = a2, b2, 2 * step
+    return torch.maximum(m0[:, None] + a, b)
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_mlstm_gate_chain_gives_the_recurrence_m_bit_for_bit(fresh):
+    """The chunkwise kernel's stabiliser (log-sigmoids in parallel, then
+    the max-plus recurrence one add and one max a step) equals the plain
+    recurrence's m_t bit for bit in float32, from a fresh state (m = -inf,
+    no NaN) and from one reached mid-sequence, across chunk boundaries.
+    A tree scan of the same operator regroups the adds and does not; m_t
+    enters den directly, so the kernel keeps the recurrence's order."""
+    B, T, H, dh = 2, 3 * tmlstm.CHUNK + 5, 2, 8
+    q, k, v, ip, fp = _mlstm_inputs(21, B, T, H, dh)
+    st = _mlstm_state(B, H, dh, dh, seed=None if fresh else 22)
+    want = []
+    state = [_torch(a.copy()) for a in st]
+    for t in range(T):       # the plain version one step at a time
+        ops.mlstm_chunk(*(_torch(a[:, t:t + 1].copy())
+                          for a in (q, k, v, ip, fp)), *state)
+        want.append(state[2].clone())
+    want = torch.stack(want, dim=1)
+    got = _gate_chain(_torch(fp), _torch(ip), _torch(st[2].copy()),
+                      tmlstm.CHUNK)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    tree = _tree_max_plus(_torch(fp), _torch(ip), _torch(st[2].copy()))
+    torch.testing.assert_close(tree, want, atol=1e-5, rtol=1e-5)
+    assert not torch.equal(tree, want)
+
+
+def _round_tf32(x):
+    return _tf32(x.float())
+
+
+def _mm_tf32(a, b, exact_a, exact_b, split):
+    """a @ b from the operands a tensor core reads: TF32 hi, plus (where
+    ``split`` and the operand is not exact in TF32) its lo, summed in
+    float64 (a tensor core's products of TF32 values are exact)."""
+    a, b = a.float(), b.float()
+    ah = a if exact_a else _round_tf32(a)
+    bh = b if exact_b else _round_tf32(b)
+    out = ah.double() @ bh.double()
+    if split and not exact_a:
+        out = out + _round_tf32(a - ah).double() @ bh.double()
+    if split and not exact_b:
+        out = out + ah.double() @ _round_tf32(b - bh).double()
+    return out
+
+
+def _mlstm_chunkwise(q, k, v, ip, fp, C, n, m, exact, unsplit=None):
+    """The chunkwise kernel's algebra for one (batch, head) in float64:
+    chunks of ``tmlstm.CHUNK`` steps, the gates as the kernel takes them
+    (``_gate_chain``'s float32 m), the products S = Q K^T, C^T q, P V and
+    the state's (w V)^T K from TF32 operands split into hi and lo
+    (``exact``: q, k, v are bfloat16 values, exact in TF32, and enter
+    unsplit), except the one named ``unsplit``, taken as one TF32
+    product. q, k: (T, dk); v: (T, dv); ip, fp: (T,); C, n, m: the state.
+    Returns (h, C, n, m)."""
+    T, dk = q.shape
+    qs = dk ** -0.5
+    lf = torch.nn.functional.logsigmoid(fp.float())
+    C, n, mc, hs = C.double(), n.double(), m.float(), []
+    for t0 in range(0, T, tmlstm.CHUNK):
+        sl = slice(t0, min(T, t0 + tmlstm.CHUNK))
+        mt = _gate_chain(fp[None, sl, None], ip[None, sl, None],
+                         mc[None, None], tmlstm.CHUNK)[0, :, 0].double()
+        F = torch.cumsum(lf[sl].double(), 0)
+        iv = ip[sl].double()
+        d = torch.exp(F + mc.double() - mt)          # 0 from m = -inf
+        w = torch.exp((F - mt)[:, None] - (F - iv)[None, :]).tril()
+        Q, K, V = q[sl], k[sl], v[sl]
+        P = _mm_tf32(Q, K.T, exact, exact, unsplit != "S") * qs * w
+        num = d[:, None] * _mm_tf32(Q, C, exact, False, unsplit != "QC") \
+            * qs + _mm_tf32(P, V, False, exact, unsplit != "PV")
+        nq = d * (Q.double() @ n) * qs + P.sum(1)
+        hs.append(num / torch.maximum(nq.abs(), torch.exp(-mt))[:, None])
+        we = torch.exp(F[-1] - F + iv - mt[-1])
+        C = d[-1] * C + _mm_tf32((K.double() * we[:, None]).T, V, False,
+                                 exact, unsplit != "KV")
+        n = d[-1] * n + (K.double() * we[:, None]).sum(0)
+        mc = mt[-1].float()
+    return torch.cat(hs), C, n, mc
+
+
+def _mlstm_recurrence_f64(q, k, v, ip, fp, C, n, m):
+    """The recurrence step by step in float64 (the plain version's
+    arithmetic); one (batch, head)."""
+    dk = q.shape[1]
+    qf, kf, vf = q.double() * dk ** -0.5, k.double(), v.double()
+    lf = torch.nn.functional.logsigmoid(fp.double())
+    C, n, m, hs = C.double(), n.double(), m.double(), []
+    for t in range(q.shape[0]):
+        mn = torch.maximum(lf[t] + m, ip[t].double())
+        fg, ig = torch.exp(lf[t] + m - mn), torch.exp(ip[t].double() - mn)
+        C = fg * C + ig * torch.outer(kf[t], vf[t])
+        n = fg * n + ig * kf[t]
+        hs.append(qf[t] @ C / torch.maximum((qf[t] @ n).abs(),
+                                            torch.exp(-mn)))
+        m = mn
+    return torch.stack(hs), C, n, m
+
+
+def _mlstm_head(dtype, warm, T=64, d=384):
+    """One (batch, head) at xlstm-125m's width; q, k, v rounded to
+    ``dtype``'s values."""
+    q, k, v, ip, fp = (_torch(a)[0, :, 0] for a in _mlstm_inputs(23, 1, T,
+                                                                 1, d))
+    q, k, v = (t.to(getattr(torch, dtype)).float() for t in (q, k, v))
+    C, n, m = (_torch(a)[0, 0] for a in _mlstm_state(1, 1, d, d,
+                                                     seed=24 if warm
+                                                     else None))
+    return q, k, v, ip, fp, C, n, m
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlstm_chunkwise_split_keeps_float32_accuracy(dtype, warm):
+    """The chunkwise form with every product split into TF32 hi and lo
+    (unsplit where an operand is a bfloat16 input) against the float64
+    recurrence at xlstm-125m's width (dk = dv = 384), two chunks: h and
+    the final C, n, m within 1e-5, inside the 1e-4 that chip_smoke.py
+    holds the final state to in both dtype modes."""
+    args = _mlstm_head(dtype, warm)
+    got = _mlstm_chunkwise(*args, exact=dtype == "bfloat16")
+    want = _mlstm_recurrence_f64(*args)
+    for g, w in zip(got, want):
+        assert (g.double() - w).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("product", ["S", "QC", "PV", "KV"])
+def test_mlstm_one_unsplit_product_leaves_float32_accuracy(product):
+    """In float32 each of the four products, taken as one TF32 product,
+    puts h or the final C outside 1e-4: why the kernel splits them all."""
+    args = _mlstm_head("float32", False)
+    got = _mlstm_chunkwise(*args, exact=False, unsplit=product)
+    want = _mlstm_recurrence_f64(*args)
+    err = max((got[i] - want[i]).abs().max().item() for i in (0, 1))
+    assert err > 1e-4, err
+
+
+def _exp2_fma(x, coef=tmamba.EXP2_POLY):
+    """The scan kernel's exp2_fma in torch float32: clamp to [-125, 127],
+    j = rint(x) by the magic-number add, f = x - j, Horner with each FMA
+    rounded once (float64 then float32), 2^j added to the exponent bits."""
+    x = x.float().clamp(-125.0, 127.0)
+    big = x + 12582912.0
+    f = x - (big - 12582912.0)
+    r = torch.full_like(f, coef[-1])
+    for c in coef[-2::-1]:
+        r = (r.double() * f.double() + c).float()
+    bits = r.view(torch.int32) + (big.view(torch.int32) << 23)
+    return bits.view(torch.float32)
+
+
+def test_exp2_polynomial_matches_exp2_over_the_scan_range():
+    """2^x on the FMA pipe against float64 exp2, over dt A log2(e) as Jamba
+    gives it (A = -exp(A_log) in [-16, -1] at initialisation, dt a
+    softplus up to ~2: x in [-50, 0], dense) and the clamped range
+    [-125, 127]: within 2e-7 relative, float32's own accuracy, far inside
+    the 1e-4 the scan is held to; exact at 0."""
+    x = torch.cat([torch.linspace(-50.0, 0.0, 200001),
+                   torch.linspace(-125.0, 127.0, 20001),
+                   torch.tensor([0.0, -0.5, 0.5, -1.0, 1.0])])
+    got = _exp2_fma(x).double()
+    want = torch.exp2(x.double())
+    assert ((got - want).abs() / want).max() < 2e-7
+    assert _exp2_fma(torch.tensor([0.0])).item() == 1.0
+    # x below -125 is clamped: 2^-125, effectively 0 beside any h
+    assert _exp2_fma(torch.tensor([-300.0])).item() == 2.0 ** -125
+
+
+def test_recurrent_routes_follow_the_length():
+    """One step (decode) takes the recurrent / step kernel; a prompt of
+    any other length the chunkwise / scan kernel."""
+    assert [tmlstm.route(T) for T in (1, 2, 13, 512)] == \
+        ["recurrent", "chunkwise", "chunkwise", "chunkwise"]
+    assert [tmamba.route(T) for T in (1, 2, 45, 512)] == \
+        ["step", "scan", "scan", "scan"]
+    assert set(tmlstm.ROUTES) == {"chunkwise", "recurrent"}
+    assert set(tmamba.ROUTES) == {"scan", "step"}
+    for name, kernel in (("mlstm_chunk", tmlstm), ("mamba_scan", tmamba)):
+        assert set(ops.route_counts(name)) == set(kernel.ROUTES)
+
+
+@pytest.mark.parametrize("args,want", [
+    # xlstm-125m's prefill (a block per (batch, head) and 48 columns)
+    ((4, 512, 4, 384, 384, 2), ("chunkwise", 1, True, True)),
+    ((4, 512, 4, 384, 384, 4), ("chunkwise", 1, True, True)),
+    # its decode: clusters of 8 split dk, 16-byte loads of C
+    ((4, 1, 4, 384, 384, 2), ("recurrent", 8, False, True)),
+    # ragged: 200-byte bf16 rows of q, k go through plain loads
+    ((3, 21, 2, 100, 72, 2), ("chunkwise", 1, False, True)),
+    ((3, 1, 2, 100, 72, 2), ("recurrent", 6, False, True)),
+    ((2, 1, 2, 8, 8, 4), ("recurrent", 1, False, True)),
+    ((2, 1, 2, 16, 6, 4), ("recurrent", 1, False, False)),
+])
+def test_mlstm_plan_by_length_and_shape(args, want):
+    p = tmlstm.plan(*args)
+    assert tuple(p) == want
+    assert tmlstm.plan(*args, aligned=False)[2:] == (False, False)
+
+
+def test_mamba_plan_by_length_and_shape():
+    """cp.async rows where they start on 16 bytes and are whole 16-byte
+    chunks (Jamba's column slices at dt_rank 256 are), plain loads
+    else; 4-state step threads at N = 16."""
+    def tensors(Bt, T, E, N, dtype, off):
+        proj = torch.zeros(Bt, T, off + 2 * N, dtype=dtype)
+        return (torch.zeros(Bt, T, E, dtype=dtype),
+                torch.zeros(Bt, T, E), torch.zeros(E, N),
+                proj[..., off:off + N], proj[..., off + N:],
+                torch.zeros(Bt, E, N))
+    served = tmamba.plan(*tensors(4, 512, 8192, 16, torch.bfloat16, 256))
+    assert served == ("scan", True, True, True, True)
+    step = tmamba.plan(*tensors(4, 1, 8192, 16, torch.bfloat16, 256))
+    assert step.route == "step" and step.quad
+    ragged = tmamba.plan(*tensors(2, 45, 300, 16, torch.bfloat16, 5))
+    assert ragged[:4] == ("scan", False, True, False)
+    assert not tmamba.plan(*tensors(2, 1, 32, 8, torch.float32, 5)).quad
+    # the special-function floor of Jamba's prefill on 132 SMs at 1.98 GHz
+    assert tmamba.sfu_floor_ms(4, 512, 8192, 16, 132, 1.98) == \
+        pytest.approx(0.0642, abs=1e-4)
 
 
 # ---------------------------------------------------------------------------
