@@ -40,24 +40,40 @@ Diffusion path (slice 1):
    on the CPU (plain versions) must agree. Then ``torch.profiler`` traces
    one tier-0 stage call at batches 1 and 8: device busy time, the idle
    share of the wall, device time by kernel.
+4. The live control loop over that cascade and its e(b):
+   ``ClusterBackend`` with 4 workers (every slice on this card, each
+   batch's measured wall charged to its slice's virtual clock) replays
+   ``azure_like_trace(40, seed=2)`` scaled into 1-8 qps under the
+   DiffServe control plane (EWMA, the MILP planner over the measured
+   e(b), heartbeat, accept-all; SLO = max(10 x tier-1 e(1), 1 s)), with
+   every launch counter zeroed just before and read just after. It logs
+   the control ticks, distinct plans and the head of the plan timeline;
+   total, completed and dropped; violation ratio, goodput, latency p50
+   and p99 (virtual clock), defer fraction and FID*; each tier's
+   batches by bucket; and each (tier, bucket)'s median in-loop wall
+   against the e(b) the planner used. It fails unless
+   completed + dropped = total, more than half completed, at least 3
+   plans were applied, both tiers ran and a query deferred, and the
+   launches equal those of the recorded stage calls (the untimed first
+   call at a new bucket included) and scored batches.
 
 Dense LM path (slice 2), after the diffusion path's tensors are freed:
 
-4. Yi-9B at full width but 2 layers in float32: the prefill logits and
+5. Yi-9B at full width but 2 layers in float32: the prefill logits and
    the first decode logits through the kernels against the same forward
    with every ``ops`` function swapped for its plain version (relative
    1e-4).
-5. Random Yi-9B at full width and depth in bfloat16 (seeded
+6. Random Yi-9B at full width and depth in bfloat16 (seeded
    ``torch.Generator``): one prefill of 4 x 512 tokens and one decode
    step through the kernels against the plain versions (relative 5e-2
    on the last-position logits; the share of greedy tokens that agree
    is printed), with every kernel call recorded.
-6. Each LM kernel against its plain version at the recorded shapes
+7. Each LM kernel against its plain version at the recorded shapes
    (held in bfloat16 and float32, timed in bfloat16, the path's dtype),
    plus decode attention at one layer of decode_32k, with kernel,
    plain, library and bound times. Times are device times of calls
    queued back to back (``cuda_ms``).
-7. The slice: ``serve_prefill`` of 4 prompts of 512 tokens into a cache
+8. The slice: ``serve_prefill`` of 4 prompts of 512 tokens into a cache
    of 1024, then 32 greedy ``serve_decode`` steps, with every launch
    counter zeroed just before and read just after; the counts must
    equal the path's. Prefill time, per-token decode latency (median of
@@ -68,14 +84,14 @@ Recurrent-state paths: xlstm-125m at full width and depth
 (mLSTM kernel), then Jamba at full width (Mamba scan kernel, attention
 without RoPE, MoE), each after the previous model's tensors are freed:
 
-8. Full width in float32 (xlstm-125m at full depth; Jamba at 2 layers,
+9. Full width in float32 (xlstm-125m at full depth; Jamba at 2 layers,
    one ("mamba", "moe") and one ("attn", "mlp")): prefill and first
    decode logits through the kernels against the plain versions
    (relative 1e-4).
-9. Random bfloat16 weights (xlstm-125m at full depth; Jamba at 16 of
+10. Random bfloat16 weights (xlstm-125m at full depth; Jamba at 16 of
    its 32 layers, 2 of 4 periods, 52 GB): the same against the plain
    versions (relative 5e-2), with every kernel call recorded.
-10. The recurrence kernel against its plain version at the recorded
+11. The recurrence kernel against its plain version at the recorded
     shapes, held in float32 and in the path's dtypes, timed in the latter
     (``cuda_ms``), beside its bound; no single PyTorch call computes
     either recurrence, so no library time. Each recorded call must have
@@ -84,22 +100,23 @@ without RoPE, MoE), each after the previous model's tensors are freed:
     mLSTM's bound counts its products on TF32 tensor cores at float32
     accuracy, and the scan's prefill logs its special-function floor
     beside its bytes bound. Jamba's flash and decode attention calls (KH
-    8, G 4) are held and timed there as Yi-9B's are in 6.
-11. The served run, as in 7: 4 prompts of 512 tokens, 32 greedy decode
+    8, G 4) are held and timed there as Yi-9B's are in 7.
+12. The served run, as in 8: 4 prompts of 512 tokens, 32 greedy decode
     steps (Jamba's attention cache 1024 rows), launch counters zeroed
     just before and read just after and equal to the path's, and the
     recurrence's launches by route equal to one prompt and 32 steps a
     layer; prefill time, median decode step against its bytes bound,
     ``torch.profiler`` traces of one decode step and one prefill.
 
-12. The wall time and the card's line again, one JSON line listing
-    every ported kernel, with its launches by path (diffusion, lm,
-    xlstm, jamba) and, for flash attention, its three routes (``tf32x3``
-    over one UNet forward, ``wgmma`` over one Yi-9B prefill, ``cuda_core``
-    at the UNet's inputs) and, for the mLSTM and the selective scan,
-    their two routes, with their times and launches; flash attention's
-    float32 route and GroupNorm carry ``was_ms``, their earlier kernel's
-    time where this run measured it; then, last, the result line
+13. The wall time and the card's line again, one JSON line listing
+    every ported kernel, with its launches by path (diffusion, live,
+    lm, xlstm, jamba) and, for flash attention, its three routes
+    (``tf32x3`` over one UNet forward, ``wgmma`` over one Yi-9B prefill,
+    ``cuda_core`` at the UNet's inputs) and, for the mLSTM and the
+    selective scan, their two routes, with their times and launches;
+    flash attention's float32 route and GroupNorm carry ``was_ms``,
+    their earlier kernel's time where this run measured it; then, last,
+    the result line
     ``{"ok": true, "device": {...}}``.
 
 Every served run also checks flash attention's launches by route: the
@@ -140,6 +157,12 @@ MODEL_TOL = dict(atol=1e-3, rtol=1e-3)
 BUCKETS = (1, 2, 4, 8)
 SERVE_SIZES = (1, 3, 8)
 PROMPT_LEN = 8
+# the live control loop: workers, and the trace azure_like_trace(40,
+# seed=2) scaled into 1-8 qps
+LIVE_WORKERS = 4
+LIVE_TRACE_S = 40
+LIVE_TRACE_SEED = 2
+LIVE_QPS = (1, 8)
 DEV = "cuda"
 CUDA_SOURCES = ("flash_attention", "flash_attention_tc",
                 "flash_attention_tf32", "fused_groupnorm", "decode_attention",
@@ -666,6 +689,7 @@ def serve_slice(torch, np, full_cfg, dcfg):
     from repro_torch.models.efficientnet import init_discriminator
     from repro_torch.models.unet import init_unet
     from repro_torch.serving.cluster import ClusterRuntime
+    from repro_torch.serving.profiles import default_serving
     tier0 = dataclasses.replace(full_cfg, name="tier0-turbo", num_steps=1)
     tier1 = dataclasses.replace(full_cfg, name="tier1-ddim50", num_steps=50)
     stages = [(tier0, init_unet(tier0, seed=0, device=DEV)),
@@ -674,8 +698,10 @@ def serve_slice(torch, np, full_cfg, dcfg):
                             init_discriminator(dcfg, seed=2, device=DEV),
                             kernel_impl="fused", batch_buckets=BUCKETS,
                             device=DEV, seed=0)
-    rt = ClusterRuntime(casc, num_workers=2, kernel_impl="fused",
-                        batch_buckets=BUCKETS, device=DEV)
+    serving = default_serving("sdturbo", num_workers=LIVE_WORKERS,
+                              batch_choices=BUCKETS, kernel_impl="fused",
+                              batch_buckets=BUCKETS)
+    rt = ClusterRuntime(casc, serving, device=DEV)
     profiles = rt.measure_profile(batches=BUCKETS, prompt_len=PROMPT_LEN,
                                   repeats=2)
     eb = []
@@ -750,7 +776,136 @@ def serve_slice(torch, np, full_cfg, dcfg):
     routes = check_routes(torch, "diffusion", full_cfg.dtype, 128, "tf32x3",
                           counts["flash_attention"])
     return counts, {"e_b": eb, "served": served, "serve_wall_s": serve_s,
-                    "flash_routes": routes}, casc
+                    "flash_routes": routes}, casc, rt, profiles
+
+
+def live_loop(torch, np, casc, rt, profiles):
+    """The live control loop at full width: ``ClusterBackend`` replays a
+    trace in virtual time under the DiffServe control plane (EWMA demand,
+    the MILP planner, heartbeat, accept-all), planning from the e(b) the
+    slice phase measured on this card, and runs every batch of the
+    cascade for real, charging its measured wall to its slice's clock.
+    Every stage call is recorded (the untimed first call at a new bucket
+    too), so the kernels' launches can be held to the calls."""
+    from repro_torch.config.base import as_cascade_spec
+    from repro_torch.kernels import ops
+    from repro_torch.serving.baselines import make_profiles
+    from repro_torch.serving.cluster import ClusterBackend
+    from repro_torch.serving.controlplane import build_control_plane
+    from repro_torch.serving.trace import azure_like_trace
+    spec = as_cascade_spec(rt.serving.cascade)
+    tiers = tuple(dataclasses.replace(t, profile=profiles[i])
+                  for i, t in enumerate(spec.tiers))
+    spec = dataclasses.replace(spec, tiers=tiers,
+                               slo_s=max(10 * profiles[-1].base_s, 1.0))
+    serving = dataclasses.replace(rt.serving, cascade=spec)
+    deferral = make_profiles(serving, 0)
+    control = build_control_plane(spec, serving, deferral)
+    backend = ClusterBackend(rt, serving, deferral, seed=0,
+                             prompt_len=PROMPT_LEN, device=DEV)
+    trace = azure_like_trace(LIVE_TRACE_S, seed=LIVE_TRACE_SEED).scale(
+        *LIVE_QPS)
+    calls = Counter()                 # (tier, bucket) -> stage calls
+    walls = {}                        # (tier, bucket) -> timed walls
+    run_stage = backend._run_stage
+
+    def recording(sl, tier, n):
+        warmed = len(backend._warmed)
+        wall, out = run_stage(sl, tier, n)
+        key = (tier, casc.bucket_for(n))
+        calls[key] += 1 + len(backend._warmed) - warmed
+        walls.setdefault(key, []).append(wall)
+        return wall, out
+    backend._run_stage = recording
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = backend.serve(control, trace)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    plans = backend.plan_timeline
+    distinct = len({p[1:] for p in plans})
+    log(f"live loop: slo {spec.slo_s:.3f} s, trace {trace.name} "
+        f"({trace.duration_s:.0f} s, {LIVE_QPS[0]}-{LIVE_QPS[1]} qps), "
+        f"{serving.num_workers} workers; wall {loop_s:.1f} s")
+    log(f"live loop: {len(plans)} control ticks, {distinct} distinct "
+        f"plans; head " + "; ".join(
+            f"t={t:.0f} w={list(w)} b={list(b)}" for t, w, b in plans[:8]))
+    lat = np.percentile(r.latencies, (50, 99)) if r.latencies else (0, 0)
+    log(f"live loop: total {r.total}, completed {r.completed}, dropped "
+        f"{r.dropped}; violation ratio {r.violation_ratio:.4f}, goodput "
+        f"{r.goodput:.4f}, defer fraction {r.defer_fraction:.4f}, FID* "
+        f"{r.mean_fid:.4f}; latency p50 {lat[0]:.3f} s, p99 {lat[1]:.3f} s "
+        f"(virtual clock); thresholds "
+        f"{sorted({th for _, th in r.threshold_timeline})}")
+    timed = {k: len(v) for k, v in walls.items()}
+    n_tiers = spec.num_tiers
+    fit_vs_wall = []
+    for tier in range(n_tiers):
+        by_bucket = {b: timed[(t, b)] for t, b in sorted(timed) if t == tier}
+        log(f"live loop: tier {tier} batches by bucket {by_bucket}")
+        points = dict(rt.last_stage_times[tier])
+        for (t, b) in sorted(walls):
+            if t != tier:
+                continue
+            med = float(np.median(walls[(t, b)]))
+            planned = profiles[tier].exec_latency(b)
+            fit_vs_wall.append({"tier": tier, "bucket": b,
+                                "batches": timed[(t, b)],
+                                "median_wall_s": med,
+                                "planner_e_b_s": planned,
+                                "measured_e_b_s": points.get(b)})
+            log(f"  tier {tier} bucket {b}: median in-loop wall "
+                f"{med * 1e3:.2f} ms over {timed[(t, b)]} batches; planner "
+                f"e(b) {planned * 1e3:.2f} ms (fit), measured point "
+                + (f"{points[b] * 1e3:.2f} ms" if b in points else "none")
+                + f"; wall / planner {med / planned:.3f}")
+    # launches: a tier-0 call 41 GN + 6 attention per UNet step, a scored
+    # batch 22 GN (the discriminator), a tier-1 call 50 UNet steps
+    gn_u, gn_d, fa_u = PATH_GN["unet"], PATH_GN["disc"], PATH_FA["unet"]
+    steps = [cfg.num_steps for cfg, _ in casc.stages]
+    scored = sum(n for (t, _), n in timed.items() if t < n_tiers - 1)
+    stage_calls = [sum(n for (t, _), n in calls.items() if t == tier)
+                   for tier in range(n_tiers)]
+    untimed = [c - sum(n for (t, _), n in timed.items() if t == tier)
+               for tier, c in enumerate(stage_calls)]
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want["fused_groupnorm"] = scored * gn_d + sum(
+        c * s * gn_u for c, s in zip(stage_calls, steps))
+    want["flash_attention"] = sum(c * s * fa_u
+                                  for c, s in zip(stage_calls, steps))
+    log(f"live loop launches: {counts} (expected {want}: stage calls per "
+        f"tier {stage_calls}, of them untimed first calls {untimed}, "
+        f"scored batches {scored})")
+    if r.completed + r.dropped != r.total:
+        fail(f"live loop: completed {r.completed} + dropped {r.dropped} != "
+             f"total {r.total}")
+    if not r.completed > 0.5 * r.total:
+        fail(f"live loop: only {r.completed} of {r.total} completed")
+    if len(plans) < 3:
+        fail(f"live loop: {len(plans)} plans applied, expected >= 3")
+    if any(c == 0 for c in stage_calls) or r.deferred < 1:
+        fail(f"live loop: stage calls per tier {stage_calls}, "
+             f"{r.deferred} deferred: every tier must run and a query "
+             "must defer")
+    if counts != want:
+        fail(f"live loop launch counts {counts} != expected {want}")
+    routes = check_routes(torch, "live loop", "float32", 128, "tf32x3",
+                          counts["flash_attention"])
+    return counts, {
+        "slo_s": spec.slo_s, "trace": trace.name,
+        "workers": serving.num_workers, "wall_s": loop_s,
+        "control_ticks": len(plans), "distinct_plans": distinct,
+        "plan_timeline": [[t, list(w), list(b)] for t, w, b in plans],
+        "total": r.total, "completed": r.completed, "dropped": r.dropped,
+        "violation_ratio": r.violation_ratio, "goodput": r.goodput,
+        "latency_p50_s": float(lat[0]), "latency_p99_s": float(lat[1]),
+        "defer_fraction": r.defer_fraction, "fid_star": r.mean_fid,
+        "thresholds": [[t, list(th)] for t, th in r.thresholds_timeline],
+        "completed_per_tier": r.completed_per_tier,
+        "stage_calls": stage_calls, "scored_batches": scored,
+        "e_b_against_wall": fit_vs_wall, "flash_routes": routes}
 
 
 def check_routes(torch, what, dtype, head_dim, way, n_flash):
@@ -1691,7 +1846,10 @@ def main(argv=None) -> int:
     gn_entry, gn_rows = check_groupnorm(torch, calls)
     details["flash_attention"], details["fused_groupnorm"] = fa_rows, gn_rows
     details["small_cascade"] = small_cascade_agrees_with_cpu(torch, np)
-    counts, details["slice"], casc = serve_slice(torch, np, full_cfg, dcfg)
+    counts, details["slice"], casc, rt, profiles = serve_slice(
+        torch, np, full_cfg, dcfg)
+    live_counts, details["live"] = live_loop(torch, np, casc, rt, profiles)
+    del rt
     details["profile"] = profile_stage(torch, casc)
     del casc
     gc.collect()
@@ -1708,6 +1866,7 @@ def main(argv=None) -> int:
     # head dim) timed at the UNet's inputs as the float32 route's earlier
     # kernel
     routes = {"diffusion": details["slice"]["flash_routes"],
+              "live": details["live"]["flash_routes"],
               "lm": details["lm"]["slice"]["flash_routes"],
               **{a: details[a]["slice"]["flash_routes"] for a in REC_ARCHS}}
     lm_flash = lm_entries.pop("flash_attention")
@@ -1732,7 +1891,9 @@ def main(argv=None) -> int:
                     way, 0) for a in REC_ARCHS)
     kernels = []
     for e in (fa_entry, gn_entry, *lm_entries.values(), *rec_entries):
-        by_path = {"diffusion": counts[e["name"]], "lm": lm_counts[e["name"]],
+        by_path = {"diffusion": counts[e["name"]],
+                   "live": live_counts[e["name"]],
+                   "lm": lm_counts[e["name"]],
                    "xlstm": rec_counts[REC_ARCHS[0]][e["name"]],
                    "jamba": rec_counts[REC_ARCHS[1]][e["name"]]}
         e["launches"] = sum(by_path.values())

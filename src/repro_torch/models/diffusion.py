@@ -1,9 +1,10 @@
-"""Diffusion process: cosine schedule, forward noising, DDIM sampler.
+"""Diffusion process: cosine schedule, forward noising, DDIM and Euler
+samplers.
 
-Port of ``repro/models/diffusion.py`` (``q_sample``, ``ddim_sample``).
-The sampler loop is a Python loop over a host-side timestep table; each
-step runs the UNet on the device. ``euler_sample`` and the training loss
-come with the training slice.
+Port of ``repro/models/diffusion.py`` (``q_sample``, ``ddim_sample``,
+``euler_sample``). The sampler loops are Python loops over a host-side
+timestep table; each step runs the UNet on the device. The training
+loss comes with the training slice.
 """
 from __future__ import annotations
 
@@ -70,4 +71,29 @@ def ddim_sample(params, cfg: DiffusionConfig, prompt_tokens, init_noise,
         x0 = (x - float(np.sqrt(one - ab_t)) * eps) / float(np.sqrt(ab_t))
         x0 = x0.clamp(-3.0, 3.0)
         x = float(np.sqrt(ab_n)) * x0 + float(np.sqrt(one - ab_n)) * eps
+    return x.clamp(-1.0, 1.0)
+
+
+def euler_sample(params, cfg: DiffusionConfig, prompt_tokens, init_noise,
+                 num_steps: Optional[int] = None, impl: str = "fused"):
+    """Euler ODE sampler over sigma = sqrt((1 - ab) / ab) (the DDIM
+    alternative). ``init_noise`` is the standard-normal starting latent
+    (B,H,W,C), drawn by the caller; the scaling by sigma at the first
+    timestep happens here."""
+    steps = num_steps or cfg.num_steps
+    B = prompt_tokens.shape[0]
+    ab = _schedule_np()
+    sigmas = np.sqrt((np.float32(1) - ab) / ab)
+    ts = ddim_timesteps(steps)
+    x = init_noise * float(sigmas[ts[0]])
+    for i in range(steps):
+        t = int(ts[i])
+        sig = sigmas[t]
+        sig_next = sigmas[int(ts[i + 1])] if i + 1 < steps else \
+            np.float32(0)
+        xin = x / float(np.sqrt(sig * sig + np.float32(1)))
+        eps = apply_unet(params, cfg, xin,
+                         torch.full((B,), t, device=x.device), prompt_tokens,
+                         impl=impl)
+        x = x + eps * float(sig_next - sig)
     return x.clamp(-1.0, 1.0)

@@ -27,7 +27,8 @@ from repro_torch.models.convert import from_jax
 from repro_torch.models.efficientnet import (DiscriminatorConfig,
                                              init_discriminator)
 from repro_torch.models.unet import init_unet
-from repro_torch.serving.cluster import ClusterRuntime
+from repro_torch.serving.cluster import ClusterBackend, ClusterRuntime
+from repro_torch.serving.profiles import default_serving
 
 REPO = Path(__file__).resolve().parents[1]
 # DDIM at t=999 multiplies eps error by 1/sqrt(1e-5) ~ 316 (see
@@ -178,8 +179,9 @@ def test_seeded_generator_noise_is_reproducible(pair):
 
 def test_cluster_runtime_on_cpu(pair):
     casc = _port(pair)
-    rt = ClusterRuntime(casc, num_workers=3, kernel_impl="fused",
-                        batch_buckets=(1, 2, 4), device="cpu")
+    sv = default_serving("sdturbo", num_workers=3, kernel_impl="fused",
+                         batch_buckets=(1, 2, 4))
+    rt = ClusterRuntime(casc, sv, device="cpu")
     assert casc.kernel_impl == "fused" and casc.batch_buckets == (1, 2, 4)
     assert [s.devices for s in rt.slices] == [(torch.device("cpu"),)] * 3
     prof = rt.measure_profile(batches=(1, 2), repeats=2)
@@ -194,7 +196,7 @@ def test_cluster_runtime_on_cpu(pair):
 
 def test_measure_profile_refuses_a_new_shape_while_timing(pair):
     casc = _port(pair)
-    rt = ClusterRuntime(casc, device="cpu")
+    rt = ClusterRuntime(casc, default_serving("sdturbo"), device="cpu")
     cfg, fn, params = casc.stage_fns()[0]
     calls = []
 
@@ -215,8 +217,12 @@ def test_entry_points_default_to_cuda(pair, monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         DiffusionCascade(tstages, DiscriminatorConfig(**_dcfg()), td)
+    sv = default_serving("sdturbo", num_workers=2)
     with pytest.raises(RuntimeError, match="CUDA"):
-        ClusterRuntime(_port(pair))
+        ClusterRuntime(_port(pair), sv)
+    rt = ClusterRuntime(_port(pair), sv, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClusterBackend(rt, sv, ())
     with pytest.raises(RuntimeError, match="CUDA"):
         init_unet(DiffusionConfig(**_ucfg(0)))
     with pytest.raises(RuntimeError, match="CUDA"):

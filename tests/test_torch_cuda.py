@@ -741,3 +741,54 @@ def test_recurrent_lm_kernel_path_matches_plain_path(cuda, monkeypatch,
     want = run()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The live control loop
+# ---------------------------------------------------------------------------
+def test_live_control_loop_on_cuda(cuda):
+    """A small two-tier cascade behind ``ClusterRuntime`` and
+    ``ClusterBackend`` on the card: e(b) measured there feeds the
+    planner, every batch runs through the kernels, and the loop
+    re-plans; every query is accounted for."""
+    from repro_torch.config.base import as_cascade_spec
+    from repro_torch.core.cascade import DiffusionCascade
+    from repro_torch.models.efficientnet import (DiscriminatorConfig,
+                                                 init_discriminator)
+    from repro_torch.serving.baselines import make_profiles
+    from repro_torch.serving.cluster import ClusterBackend, ClusterRuntime
+    from repro_torch.serving.controlplane import build_control_plane
+    from repro_torch.serving.profiles import default_serving
+    from repro_torch.serving.trace import static_trace
+    kw = dict(image_size=16, base_channels=32, channel_mults=(1, 2),
+              num_res_blocks=1, attn_resolutions=(8,), num_heads=2,
+              text_dim=32)
+    stages = [(c, init_unet(c, seed=i, device=cuda)) for i, c in enumerate(
+        (DiffusionConfig(name="s0", num_steps=1, **kw),
+         DiffusionConfig(name="s1", num_steps=4, **kw)))]
+    dcfg = DiscriminatorConfig(in_channels=4)
+    casc = DiffusionCascade(stages, dcfg,
+                            init_discriminator(dcfg, seed=2, device=cuda),
+                            device=cuda, seed=0)
+    sv = default_serving("sdturbo", num_workers=3, batch_choices=(1, 2, 4),
+                         kernel_impl="fused", batch_buckets=(1, 2, 4, 8))
+    rt = ClusterRuntime(casc, sv, device=cuda)
+    prof = rt.measure_profile(batches=(1, 2, 4), repeats=1)
+    spec = as_cascade_spec(sv.cascade)
+    spec = dataclasses.replace(
+        spec, tiers=tuple(dataclasses.replace(t, profile=prof[i])
+                          for i, t in enumerate(spec.tiers)),
+        slo_s=max(10 * prof[-1].base_s, 1.0))
+    sv = dataclasses.replace(sv, cascade=spec)
+    profiles = make_profiles(sv, 0)
+    control = build_control_plane(spec, sv, profiles)
+    backend = ClusterBackend(rt, sv, profiles, seed=0, device=cuda)
+    ops.reset_launch_counts()
+    r = backend.serve(control, static_trace(4.0, 12))
+    counts = ops.launch_counts()
+    assert r.total > 0
+    assert r.completed + r.dropped == r.total
+    assert r.completed > 0.5 * r.total
+    assert len(backend.plan_timeline) >= 3
+    assert counts["fused_groupnorm"] > 0 and counts["flash_attention"] > 0
+    assert backend._conf_samples[0]

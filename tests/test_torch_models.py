@@ -167,6 +167,25 @@ def test_ddim_sample_matches_jax(impl, jimpl, steps):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **DDIM_TOL)
 
 
+@pytest.mark.parametrize("impl,jimpl", IMPLS)
+@pytest.mark.parametrize("steps", [1, 4])
+def test_euler_sample_matches_jax(impl, jimpl, steps):
+    """The same standard-normal noise through both Euler samplers. The
+    start is that noise times sigma at t = 999, sqrt((1 - 1e-5) / 1e-5)
+    ~ 316, and the steps add eps x (sigma_next - sigma), which sum to
+    -316: the UNet's eps error reaches the sample times ~316, as in DDIM,
+    so the sample is held to DDIM_TOL (316 x the model tolerance)."""
+    jcfg, tcfg, jp, tp = _pair(**_cfg_kwargs(steps=steps))
+    _, _, toks = _inputs(9, 3, 8)
+    noise = np.random.default_rng(10).standard_normal(
+        (3, 8, 8, 3)).astype(np.float32)
+    want = jdiff.euler_sample(jp, jcfg, None, jnp.asarray(toks), impl=jimpl,
+                              init_noise=jnp.asarray(noise))
+    got = tdiff.euler_sample(tp, tcfg, torch.from_numpy(toks), impl=impl,
+                             init_noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **DDIM_TOL)
+
+
 def test_converter_layouts():
     kw = _disc_kwargs()
     jp = jax_init_disc(jax.random.PRNGKey(0), JaxDiscConfig(**kw))
