@@ -40,13 +40,30 @@ Diffusion path (slice 1):
    on the CPU (plain versions) must agree. Then ``torch.profiler`` traces
    one tier-0 stage call at batches 1 and 8: device busy time, the idle
    share of the wall, device time by kernel.
-4. The live control loop over that cascade and its e(b):
-   ``ClusterBackend`` with 4 workers (every slice on this card, each
-   batch's measured wall charged to its slice's virtual clock) replays
-   ``azure_like_trace(40, seed=2)`` scaled into 1-8 qps under the
-   DiffServe control plane (EWMA, the MILP planner over the measured
-   e(b), heartbeat, accept-all; SLO = max(10 x tier-1 e(1), 1 s)), with
-   every launch counter zeroed just before and read just after. It logs
+3b. The offline phase (paper §3.2) over that cascade: seeded pools of
+   64 + 32 held-out tier-0 outputs ("fake") and as many tier-1 outputs
+   ("real", the JAX package's ``real_fn`` setting) at b = 8 through the
+   kernels, timed; the full-width discriminator trained on the card by
+   ``train_discriminator`` (200 steps at batch 32 from the pools, each
+   image flipped, turned and shifted at random; the unfused route, so
+   no kernel launches; checkpoints in a temporary directory), its loss
+   and accuracy every 50 steps and its median step time (CUDA events);
+   the newest checkpoint reloaded from its file; the held-out pools
+   scored through the kernel route and held against the plain route at
+   the GroupNorm tolerance. It fails unless no kernel launched while
+   training, the final loss is below the first, held-out accuracy is
+   >= 0.9, the mean confidence on "real" exceeds that on "fake" by
+   >= 0.1, the reloaded tree equals the trained one bit for bit, and
+   the pools' and scoring's launches equal their forwards'.
+4. The live control loop over that cascade and its e(b), serving with
+   the trained discriminator (its f(t) from the held-out tier-0
+   scores): ``ClusterBackend`` with 4 workers (every slice on this
+   card, each batch's measured wall charged to its slice's virtual
+   clock) replays ``azure_like_trace(40, seed=2)`` scaled into 1-8 qps
+   under the DiffServe control plane (EWMA, the MILP planner over the
+   measured e(b), heartbeat, accept-all; SLO = max(10 x tier-1 e(1),
+   1 s)), with every launch counter zeroed just before and read just
+   after. It logs
    the control ticks, distinct plans and the head of the plan timeline;
    total, completed and dropped; violation ratio, goodput, latency p50
    and p99 (virtual clock), defer fraction and FID*; each tier's
@@ -56,6 +73,12 @@ Diffusion path (slice 1):
    plans were applied, both tiers ran and a query deferred, and the
    launches equal those of the recorded stage calls (the untimed first
    call at a new bucket included) and scored batches.
+4b. The comparison systems by the paper's method, the simulator, on this
+   card's numbers: diffserve, clipper-light, clipper-heavy and proteus
+   over ``azure_like_trace(120, seed=2)`` scaled into 1-8 qps, 4
+   workers, the measured e(b), the trained f(t) (proteus keeps its
+   uniform one); each one's violation ratio, FID*, defer fraction and
+   goodput. It fails unless every run conserves its queries.
 
 Dense LM path (slice 2), after the diffusion path's tensors are freed:
 
@@ -109,8 +132,8 @@ without RoPE, MoE), each after the previous model's tensors are freed:
     ``torch.profiler`` traces of one decode step and one prefill.
 
 13. The wall time and the card's line again, one JSON line listing
-    every ported kernel, with its launches by path (diffusion, live,
-    lm, xlstm, jamba) and, for flash attention, its three routes
+    every ported kernel, with its launches by path (diffusion, offline,
+    live, lm, xlstm, jamba) and, for flash attention, its three routes
     (``tf32x3`` over one UNet forward, ``wgmma`` over one Yi-9B prefill,
     ``cuda_core`` at the UNet's inputs) and, for the mLSTM and the
     selective scan, their two routes, with their times and launches;
@@ -163,6 +186,19 @@ LIVE_WORKERS = 4
 LIVE_TRACE_S = 40
 LIVE_TRACE_SEED = 2
 LIVE_QPS = (1, 8)
+# the offline phase: pools of 64 + 32 held-out outputs per tier at b = 8,
+# 200 train steps at batch 32 (the discriminator as served, 64x64x4)
+OFFLINE_POOL = 64
+OFFLINE_HELDOUT = 32
+OFFLINE_BATCH = 8
+OFFLINE_STEPS = 200
+OFFLINE_TRAIN_BATCH = 32
+OFFLINE_LR = 1e-3
+OFFLINE_SEED = 40
+OFFLINE_WARMUP, OFFLINE_TIMED = 3, 20     # the step-time loop
+# the comparison systems, simulated over the live loop's trace shape
+CONTROLLER_NAMES = ("diffserve", "clipper-light", "clipper-heavy", "proteus")
+CONTROLLERS_TRACE_S = 120
 DEV = "cuda"
 CUDA_SOURCES = ("flash_attention", "flash_attention_tc",
                 "flash_attention_tf32", "fused_groupnorm", "decode_attention",
@@ -779,27 +815,34 @@ def serve_slice(torch, np, full_cfg, dcfg):
                     "flash_routes": routes}, casc, rt, profiles
 
 
-def live_loop(torch, np, casc, rt, profiles):
-    """The live control loop at full width: ``ClusterBackend`` replays a
-    trace in virtual time under the DiffServe control plane (EWMA demand,
-    the MILP planner, heartbeat, accept-all), planning from the e(b) the
-    slice phase measured on this card, and runs every batch of the
-    cascade for real, charging its measured wall to its slice's clock.
-    Every stage call is recorded (the untimed first call at a new bucket
-    too), so the kernels' launches can be held to the calls."""
+def measured_serving(rt, profiles):
+    """The slice's serving config with each tier's e(b) measured on this
+    card and SLO = max(10 x tier-1 e(1), 1 s)."""
     from repro_torch.config.base import as_cascade_spec
-    from repro_torch.kernels import ops
-    from repro_torch.serving.baselines import make_profiles
-    from repro_torch.serving.cluster import ClusterBackend
-    from repro_torch.serving.controlplane import build_control_plane
-    from repro_torch.serving.trace import azure_like_trace
     spec = as_cascade_spec(rt.serving.cascade)
     tiers = tuple(dataclasses.replace(t, profile=profiles[i])
                   for i, t in enumerate(spec.tiers))
     spec = dataclasses.replace(spec, tiers=tiers,
                                slo_s=max(10 * profiles[-1].base_s, 1.0))
-    serving = dataclasses.replace(rt.serving, cascade=spec)
-    deferral = make_profiles(serving, 0)
+    return dataclasses.replace(rt.serving, cascade=spec)
+
+
+def live_loop(torch, np, casc, rt, profiles, deferral):
+    """The live control loop at full width: ``ClusterBackend`` replays a
+    trace in virtual time under the DiffServe control plane (EWMA demand,
+    the MILP planner, heartbeat, accept-all), planning from the e(b) the
+    slice phase measured on this card and the deferral profile f(t) of
+    the trained discriminator, which scores every tier-0 batch; every
+    batch of the cascade runs for real, its measured wall charged to its
+    slice's clock. Every stage call is recorded (the untimed first call
+    at a new bucket too), so the kernels' launches can be held to the
+    calls."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.cluster import ClusterBackend
+    from repro_torch.serving.controlplane import build_control_plane
+    from repro_torch.serving.trace import azure_like_trace
+    serving = measured_serving(rt, profiles)
+    spec = serving.cascade
     control = build_control_plane(spec, serving, deferral)
     backend = ClusterBackend(rt, serving, deferral, seed=0,
                              prompt_len=PROMPT_LEN, device=DEV)
@@ -906,6 +949,262 @@ def live_loop(torch, np, casc, rt, profiles):
         "completed_per_tier": r.completed_per_tier,
         "stage_calls": stage_calls, "scored_batches": scored,
         "e_b_against_wall": fit_vs_wall, "flash_routes": routes}
+
+
+def offline_phase(torch, np, casc, card):
+    """DiffServe's offline phase (paper §3.2) on the slice's full-width
+    cascade: seeded pools of tier-0 outputs ("fake") and tier-1 outputs
+    ("real", the JAX package's ``real_fn`` setting) at b = 8 through the
+    kernels, the full-width discriminator trained on the card with the
+    port's ``train_discriminator`` (the unfused route: no kernel
+    launches) with checkpoints, the newest checkpoint reloaded from its
+    file, and the held-out pools scored through the kernel route against
+    the plain route. Returns the trained parameters, the held-out tier-0
+    scores (the deferral profile f(t)), the launches of the pools and
+    the scoring, and the details."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.models.efficientnet import apply_discriminator
+    from repro_torch.training import checkpoint
+    from repro_torch.training import discriminator as tdisc
+    from repro_torch.training.data import DiscriminatorBatcher
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.tree import leaves, map_tree
+    dcfg = casc.disc_cfg
+    stages = casc.stage_fns()
+    n_pool = OFFLINE_POOL + OFFLINE_HELDOUT
+    rng = np.random.default_rng(OFFLINE_SEED)
+    toks = rng.integers(0, 1024, (n_pool, PROMPT_LEN))
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pools = []
+    with torch.inference_mode():
+        for tier, (cfg, fn, params) in enumerate(stages):
+            casc.generator.manual_seed(OFFLINE_SEED + tier)
+            out = [fn(params, toks[i:i + OFFLINE_BATCH]).float().cpu()
+                   for i in range(0, n_pool, OFFLINE_BATCH)]
+            pools.append(torch.cat(out).numpy())
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    pool_counts = ops.launch_counts()
+    fake, real = pools
+    for name, pool in (("fake (tier 0)", fake), ("real (tier 1)", real)):
+        if pool.shape != (n_pool, casc.stages[0][0].image_size,
+                          casc.stages[0][0].image_size, dcfg.in_channels) \
+                or not np.isfinite(pool).all():
+            fail(f"offline: the {name} pool has shape {pool.shape} or is "
+                 "not finite")
+    log(f"offline: pools of {n_pool} tier-0 and {n_pool} tier-1 outputs at "
+        f"b={OFFLINE_BATCH} in {pool_s:.3f} s ({card}); fake mean "
+        f"{fake.mean():.4f} std {fake.std():.4f}, real mean "
+        f"{real.mean():.4f} std {real.std():.4f}")
+    train_fake, held_fake = fake[:OFFLINE_POOL], fake[OFFLINE_POOL:]
+    train_real, held_real = real[:OFFLINE_POOL], real[OFFLINE_POOL:]
+    draw = np.random.default_rng(OFFLINE_SEED + 7)
+
+    def sampler(pool):
+        """``n`` images of ``pool``, each flipped, turned and shifted at
+        random on the host: 64 images a class are few, and unaugmented
+        the discriminator learns them by heart (train loss ~0, held-out
+        accuracy ~0.7 in a CPU rehearsal at a small width)."""
+        def draw_n(n):
+            out = pool[draw.choice(len(pool), n, replace=False)].copy()
+            for i in range(n):
+                img = out[i, :, ::-1] if draw.random() < 0.5 else out[i]
+                img = np.rot90(img, int(draw.integers(4)), axes=(0, 1))
+                out[i] = np.roll(img, tuple(draw.integers(0, img.shape[0],
+                                                          2)), axis=(0, 1))
+            return out
+        return draw_n
+
+    tmp = tempfile.TemporaryDirectory(prefix="disc_ckpt_")
+    ckpt_dir = tmp.name
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, _, hist = tdisc.train_discriminator(
+        OFFLINE_SEED, cfg=dcfg, steps=OFFLINE_STEPS,
+        batch_size=OFFLINE_TRAIN_BATCH,
+        image_size=casc.stages[0][0].image_size,
+        fake_fn=sampler(train_fake), real_fn=sampler(train_real),
+        seed=OFFLINE_SEED, lr=OFFLINE_LR, log_every=1,
+        checkpoint_dir=ckpt_dir, device=DEV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = ops.launch_counts()
+    loss_first, loss_last = hist[0]["loss"], hist[-1]["loss"]
+    for h in hist:
+        if h["step"] % 50 == 0:
+            log(f"offline: step {h['step']:4d} loss {h['loss']:.4f} acc "
+                f"{h['acc']:.3f} ({card})")
+    # the step time: the same train step (train_discriminator's optimizer
+    # settings), each between two CUDA events, on a copy of the trained
+    # parameters and the same pools, after a warm-up
+    opt_init, step_fn = tdisc.make_disc_train_step(dcfg, OptimizerConfig(
+        peak_lr=OFFLINE_LR, warmup_steps=20, total_steps=OFFLINE_STEPS,
+        weight_decay=1e-4))
+    p_t = map_tree(torch.clone, params)
+    o_t = opt_init(p_t)
+    batches = iter(DiscriminatorBatcher(
+        rng=np.random.default_rng(OFFLINE_SEED + 8),
+        size=OFFLINE_TRAIN_BATCH, image_size=casc.stages[0][0].image_size,
+        fake_fn=sampler(train_fake), real_fn=sampler(train_real)))
+    events = []
+    for i in range(OFFLINE_WARMUP + OFFLINE_TIMED):
+        x, y = next(batches)
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(DEV)
+        y = torch.from_numpy(y).to(DEV)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        p_t, o_t, _ = step_fn(p_t, o_t, x, y)
+        e1.record()
+        if i >= OFFLINE_WARMUP:
+            events.append((e0, e1))
+    torch.cuda.synchronize()
+    step_ms = sorted(e0.elapsed_time(e1) for e0, e1 in events)
+    train_counts = {k: v + ops.launch_counts()[k]
+                    for k, v in train_counts.items()}
+    log(f"offline: {OFFLINE_STEPS} train steps at batch "
+        f"{OFFLINE_TRAIN_BATCH} in {train_s:.3f} s (wall, a host read of "
+        f"loss and accuracy each step); median of {OFFLINE_TIMED} steps "
+        f"{step_ms[len(step_ms) // 2]:.3f} ms (CUDA events; min "
+        f"{step_ms[0]:.3f}, max {step_ms[-1]:.3f}) ({card}); loss step 1 "
+        f"{loss_first:.4f}, step {OFFLINE_STEPS} {loss_last:.4f}; "
+        f"launches while training {train_counts}")
+    if any(train_counts.values()):
+        fail(f"offline: kernels launched while training {train_counts}: "
+             "the train step must take the unfused route")
+    if not loss_last < loss_first:
+        fail(f"offline: final loss {loss_last} not below the first "
+             f"{loss_first}")
+    newest = checkpoint.latest_step(ckpt_dir)
+    loaded, step, extra = checkpoint.load(ckpt_dir, params, device=DEV)
+    same = all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a, b)
+               for a, b in zip(leaves(loaded), leaves(params)))
+    log(f"offline: checkpoints {checkpoint.sorted_steps(ckpt_dir)}; "
+        f"reloaded step {step} ({extra}) from its file: "
+        f"{'bit for bit equal' if same else 'DIFFERENT'}")
+    tmp.cleanup()
+    if newest != OFFLINE_STEPS or step != OFFLINE_STEPS or not same:
+        fail("offline: the reloaded checkpoint is not the trained tree")
+
+    def forward(pool, impl):
+        """(logits, pooled features) of ``pool`` on the given route."""
+        with torch.inference_mode():
+            outs = [apply_discriminator(loaded, dcfg, torch.from_numpy(
+                pool[i:i + OFFLINE_BATCH]).to(DEV), impl=impl)
+                for i in range(0, len(pool), OFFLINE_BATCH)]
+            return [torch.cat(o).cpu() for o in zip(*outs)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    k_fake, k_real = forward(held_fake, "fused"), forward(held_real, "fused")
+    torch.cuda.synchronize()
+    score_counts = ops.launch_counts()
+    u_fake = forward(held_fake, "unfused")
+    u_real = forward(held_real, "unfused")
+    # the kernel route against the plain route before the softmax, which
+    # saturates: logits and the head's pooled features (the last
+    # GroupNorm's output, averaged)
+    errs = {}
+    for i, what in enumerate(("logits", "features")):
+        got = torch.cat([k_fake[i], k_real[i]])
+        want = torch.cat([u_fake[i], u_real[i]])
+        errs[what] = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, **GN_TOL)
+    # P('real'), as confidence_score computes it
+    s_fake, s_real = (torch.softmax(k[0], dim=-1)[:, 1].numpy()
+                      for k in (k_fake, k_real))
+    acc = float(((s_real > 0.5).sum() + (s_fake <= 0.5).sum())
+                / (len(s_real) + len(s_fake)))
+    gap = float(s_real.mean() - s_fake.mean())
+    log(f"offline: held-out {len(s_real)} real + {len(s_fake)} fake: "
+        f"accuracy {acc:.4f}, mean confidence real {s_real.mean():.4f} "
+        f"fake {s_fake.mean():.4f} (gap {gap:.4f}); kernel route vs plain "
+        f"route max |diff| logits {errs['logits']:.3e} (|logit| up to "
+        f"{float(torch.cat([k_fake[0], k_real[0]]).abs().max()):.3f}), "
+        f"features {errs['features']:.3e} (tol {GN_TOL})")
+    if acc < 0.9:
+        fail(f"offline: held-out accuracy {acc} < 0.9")
+    if gap < 0.1:
+        fail(f"offline: mean confidence gap {gap} < 0.1")
+    # launches: the pools (a UNet forward per DDIM step of each batch) and
+    # the held-out scoring through the kernel route
+    gn_u, gn_d, fa_u = PATH_GN["unet"], PATH_GN["disc"], PATH_FA["unet"]
+    n_batches = -(-n_pool // OFFLINE_BATCH)
+    unet = n_batches * sum(cfg.num_steps for cfg, _, _ in stages)
+    scored = 2 * -(-OFFLINE_HELDOUT // OFFLINE_BATCH)
+    counts = {k: pool_counts[k] + score_counts[k] for k in pool_counts}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"fused_groupnorm": unet * gn_u + scored * gn_d,
+                 "flash_attention": unet * fa_u})
+    log(f"offline launches: {counts} (expected {want}: {unet} UNet "
+        f"forwards, {scored} scored batches)")
+    if counts != want:
+        fail(f"offline launch counts {counts} != expected {want}")
+    return params, s_fake, counts, {
+        "card": card, "pool_s": pool_s, "pool_images": 2 * n_pool,
+        "train_s": train_s, "steps": OFFLINE_STEPS,
+        "train_batch": OFFLINE_TRAIN_BATCH,
+        "step_ms_median": step_ms[len(step_ms) // 2],
+        "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+        "loss_first": loss_first, "loss_last": loss_last,
+        "history": [h for h in hist
+                    if h["step"] == 1 or h["step"] % 50 == 0],
+        "train_launches": train_counts, "checkpoint_step": step,
+        "heldout_accuracy": acc, "mean_conf_real": float(s_real.mean()),
+        "mean_conf_fake": float(s_fake.mean()),
+        "logits_max_abs_diff": errs["logits"],
+        "features_max_abs_diff": errs["features"]}
+
+
+def controllers_phase(np, serving, deferral, card):
+    """The paper's comparison (§5) by its own method, the simulator, on
+    this card's numbers: DiffServe against Clipper-Light, Clipper-Heavy
+    and Proteus over one trace, through ``assemble_bundle`` (the
+    assembly ``run_controller`` goes through; ``run_controller`` itself
+    fits the synthetic profile, so the trained one is passed here) and
+    ``Simulator``. Tier profiles are the e(b) measured on the card; the
+    query-aware bundles' deferral profile is the trained
+    discriminator's, Proteus keeps its uniform f(t) = t. Host work."""
+    from repro_torch.serving.baselines import (TORCH_CONTROLLERS,
+                                               assemble_bundle)
+    from repro_torch.serving.simulator import SimConfig, Simulator
+    from repro_torch.serving.trace import azure_like_trace
+    trace = azure_like_trace(CONTROLLERS_TRACE_S,
+                             seed=LIVE_TRACE_SEED).scale(*LIVE_QPS)
+    rows = []
+    for name in CONTROLLER_NAMES:
+        given = None if TORCH_CONTROLLERS[name].uniform_profile \
+            else tuple(deferral)
+        t0 = time.perf_counter()
+        bundle, profiles, fixed, control, conf = assemble_bundle(
+            name, trace, serving, seed=0, profiles=given)
+        sim = Simulator(serving, profiles,
+                        SimConfig(seed=0, router=bundle.router,
+                                  arrival_stage=bundle.arrival_stage,
+                                  fixed_plan=fixed),
+                        confidence_fn=conf, control=control)
+        r = sim.run(trace)
+        wall = time.perf_counter() - t0
+        row = {"controller": name, "total": r.total,
+               "completed": r.completed, "dropped": r.dropped,
+               "violation_ratio": r.violation_ratio, "fid_star": r.mean_fid,
+               "defer_fraction": r.defer_fraction, "goodput": r.goodput,
+               "host_s": wall}
+        rows.append(row)
+        log(f"controllers: {name}: total {r.total}, completed "
+            f"{r.completed}, dropped {r.dropped}; violation ratio "
+            f"{r.violation_ratio:.4f}, FID* {r.mean_fid:.4f}, defer "
+            f"fraction {r.defer_fraction:.4f}, goodput {r.goodput:.4f} "
+            f"(simulator over {trace.name}, {trace.duration_s:.0f} s; "
+            f"e(b) from {card}; host {wall:.3f} s)")
+        if r.completed + r.dropped != r.total or not r.conserved():
+            fail(f"controllers: {name}: completed {r.completed} + dropped "
+                 f"{r.dropped} != total {r.total}")
+    return rows
 
 
 def check_routes(torch, what, dtype, head_dim, way, n_flash):
@@ -1848,7 +2147,18 @@ def main(argv=None) -> int:
     details["small_cascade"] = small_cascade_agrees_with_cpu(torch, np)
     counts, details["slice"], casc, rt, profiles = serve_slice(
         torch, np, full_cfg, dcfg)
-    live_counts, details["live"] = live_loop(torch, np, casc, rt, profiles)
+    card = details["build"]["card"]
+    trained, heldout_fake, offline_counts, details["offline"] = \
+        offline_phase(torch, np, casc, card)
+    # the live loop serves with the trained discriminator, its f(t) from
+    # the held-out tier-0 scores
+    from repro_torch.core.confidence import DeferralProfile
+    casc.disc_params = trained
+    deferral = (DeferralProfile(heldout_fake.tolist()),)
+    live_counts, details["live"] = live_loop(torch, np, casc, rt, profiles,
+                                             deferral)
+    details["controllers"] = controllers_phase(
+        np, measured_serving(rt, profiles), deferral, card)
     del rt
     details["profile"] = profile_stage(torch, casc)
     del casc
@@ -1892,6 +2202,7 @@ def main(argv=None) -> int:
     kernels = []
     for e in (fa_entry, gn_entry, *lm_entries.values(), *rec_entries):
         by_path = {"diffusion": counts[e["name"]],
+                   "offline": offline_counts[e["name"]],
                    "live": live_counts[e["name"]],
                    "lm": lm_counts[e["name"]],
                    "xlstm": rec_counts[REC_ARCHS[0]][e["name"]],

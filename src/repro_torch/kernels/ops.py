@@ -6,7 +6,9 @@ kernel to its plain version. Each kernel wrapper keeps a plain integer
 launch counter (``<wrapper>.launches``), moved only where the kernel is
 launched; ``launch_counts``/``reset_launch_counts`` read and zero them,
 and a kernel with more than one route counts per route as well
-(``route_counts``).
+(``route_counts``). No kernel has a backward, so on CUDA a call that
+autograd would differentiate (grad mode on, an input that requires
+grad) raises and names the ``"unfused"`` route (``needs_grad``).
 """
 from __future__ import annotations
 
@@ -53,11 +55,30 @@ def _device_type(t: torch.Tensor, kernel: str) -> str:
     return kind
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would have to differentiate through a call on
+    ``tensors``: grad mode on and an input that requires grad."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(kernel: str, *tensors) -> None:
+    """No kernel has a backward, and a kernel's output has no
+    ``grad_fn``: on CUDA, a call that autograd would differentiate
+    raises instead of training nothing through it."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward; run the model on "
+            "the 'unfused' route (kernel_impl / impl='unfused') to train "
+            "through it")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     kv_len: Optional[int] = None):
     """q: (B,Sq,H,D); k, v: (B,Sk,KH,D). See ``ref.flash_attention_ref``."""
     if _device_type(q, "flash_attention") == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    _refuse_grad("flash_attention", q, k, v)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
                                   kv_len=kv_len)
@@ -69,6 +90,7 @@ def fused_groupnorm(x, scale, bias, *, groups: int, act: bool = True,
     if _device_type(x, "fused_groupnorm") == "cpu":
         return ref.groupnorm_silu_ref(x, scale, bias, groups=groups, eps=eps,
                                       act=act)
+    _refuse_grad("fused_groupnorm", x, scale, bias)
     return _gn.fused_groupnorm(x.contiguous(), scale, bias, groups=groups,
                                act=act, eps=eps)
 
@@ -78,6 +100,7 @@ def decode_attention(q, k, v, valid_len):
     See ``ref.decode_attention_ref``."""
     if _device_type(q, "decode_attention") == "cpu":
         return ref.decode_attention_ref(q, k, v, valid_len)
+    _refuse_grad("decode_attention", q, k, v)
     return _decode.decode_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), valid_len.contiguous())
 
@@ -87,6 +110,7 @@ def fused_rmsnorm(x, scale, *, residual=None, eps: float = 1e-5):
     See ``ref.rmsnorm_ref``."""
     if _device_type(x, "fused_rmsnorm") == "cpu":
         return ref.rmsnorm_ref(x, scale, eps=eps, residual=residual)
+    _refuse_grad("fused_rmsnorm", x, scale, residual)
     return _rms.fused_rmsnorm(
         x.contiguous(), scale.contiguous(), eps=eps,
         residual=None if residual is None else residual.contiguous())
@@ -96,6 +120,7 @@ def swiglu(gate, up):
     """silu(gate) * up. See ``ref.swiglu_ref``."""
     if _device_type(gate, "swiglu") == "cpu":
         return ref.swiglu_ref(gate, up)
+    _refuse_grad("swiglu", gate, up)
     return _swiglu.swiglu(gate.contiguous(), up.contiguous())
 
 
@@ -105,6 +130,7 @@ def mlstm_chunk(q, k, v, i_pre, f_pre, C, n, m):
     ``ref.mlstm_chunk_ref``."""
     if _device_type(q, "mlstm_chunk") == "cpu":
         return ref.mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m)
+    _refuse_grad("mlstm_chunk", q, k, v, i_pre, f_pre, C, n, m)
     return _mlstm.mlstm_chunk(q.contiguous(), k.contiguous(),
                               v.contiguous(), i_pre.contiguous(),
                               f_pre.contiguous(), C, n, m)
@@ -117,6 +143,7 @@ def mamba_scan(u, dt, A, B, C, D, h):
     ``ref.mamba_scan_ref``."""
     if _device_type(u, "mamba_scan") == "cpu":
         return ref.mamba_scan_ref(u, dt, A, B, C, D, h)
+    _refuse_grad("mamba_scan", u, dt, A, B, C, D, h)
     return _mamba.mamba_scan(u.contiguous(), dt.contiguous(),
                              A.contiguous(), B, C, D.contiguous(), h)
 

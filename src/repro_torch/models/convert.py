@@ -11,6 +11,8 @@ same weights in the tests. Two tree families, each with its own entry:
     weights ``(cin, cout)``, ``text_embed``, ``fc``/``fc_b`` and GroupNorm
     ``scale``/``bias`` are kept as they are (the port computes ``x @ w``
     as the JAX package does).
+    ``to_jax`` is its exact inverse (checkpoints are written in the JAX
+    package's layout through it).
   * ``lm_from_jax``: the tree of the JAX package's LM ``init_params``.
     No array is transposed (the port keeps the JAX layouts); the stacked
     periods under ``"scan"`` are cut into one entry per layer. Its 4-D
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import map_tree
 
 _LM_KEYS = ("scan", "embed")
 
@@ -36,34 +39,48 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def _convert(node, device):
-    if node is None:
-        return None
-    if isinstance(node, dict):
-        return {k: _convert(v, device) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_convert(v, device) for v in node)
-    arr = np.asarray(node)
-    if arr.ndim == 4:
-        arr = arr.transpose(3, 2, 0, 1)
-    return torch.tensor(arr, device=device)
+def hwio_to_oihw(t: torch.Tensor) -> torch.Tensor:
+    """The conv layout rule: a 4-D leaf is a conv weight, HWIO in the
+    JAX package and OIHW in the port (a view; other leaves as they
+    are)."""
+    return t.permute(3, 2, 0, 1) if t.ndim == 4 else t
+
+
+def oihw_to_hwio(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``hwio_to_oihw`` (a view)."""
+    return t.permute(2, 3, 1, 0) if t.ndim == 4 else t
+
+
+def _refuse_lm(tree) -> None:
+    if isinstance(tree, dict) and any(k in tree for k in _LM_KEYS):
+        raise ValueError("an LM parameter tree (keys 'scan'/'embed'): its "
+                         "4-D leaves are not conv weights; use lm_from_jax")
 
 
 def from_jax(tree, device: DeviceLike = None):
     """A JAX UNet or discriminator parameter tree (leaves anything
-    ``np.asarray`` takes) as the port's nested dict of tensors on
-    ``device`` (CUDA unless the caller passes "cpu"). Raises on an LM
-    tree: use ``lm_from_jax``."""
-    if isinstance(tree, dict) and any(k in tree for k in _LM_KEYS):
-        raise ValueError("an LM parameter tree (keys 'scan'/'embed'): its "
-                         "4-D leaves are not conv weights; use lm_from_jax")
-    return _convert(tree, resolve_device(device))
+    ``np.asarray`` takes, or CPU tensors) as the port's nested dict of
+    tensors on ``device`` (CUDA unless the caller passes "cpu"). Raises
+    on an LM tree: use ``lm_from_jax``."""
+    _refuse_lm(tree)
+    dev = resolve_device(device)
+
+    def leaf(x):
+        t = x.detach().clone() if torch.is_tensor(x) else _tensor(x, "cpu")
+        return hwio_to_oihw(t).contiguous().to(dev)
+    return map_tree(leaf, tree)
 
 
-def _leaves(node, fn):
-    if isinstance(node, dict):
-        return {k: _leaves(v, fn) for k, v in node.items()}
-    return fn(node)
+def to_jax(tree):
+    """The exact inverse of ``from_jax``: the port's UNet or
+    discriminator tree in the JAX package's layout (conv weights OIHW ->
+    HWIO, a depthwise ``(mid,1,3,3)`` -> ``(3,3,1,mid)``), leaves as
+    contiguous CPU tensors (``np.asarray`` of one gives the array
+    ``from_jax`` took; a bfloat16 leaf stays a tensor, since numpy has
+    no bfloat16 without ``ml_dtypes``). Raises on an LM tree."""
+    _refuse_lm(tree)
+    return map_tree(lambda x: oihw_to_hwio(
+        torch.as_tensor(x).detach().cpu()).contiguous(), tree)
 
 
 def lm_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None):
@@ -75,15 +92,15 @@ def lm_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None):
     dev = resolve_device(device)
     if "scan" not in tree:
         raise ValueError("not a JAX LM parameter tree (no 'scan' key)")
-    layers = [_leaves(p, lambda a: _tensor(a, dev)) for p in tree["prefix"]]
+    def leaf(a):
+        return _tensor(a, dev)
+    layers = [map_tree(leaf, p) for p in tree["prefix"]]
     for j in range(cfg.n_periods):
         for i in range(len(cfg.period_pattern)):
-            layers.append(_leaves(tree["scan"][f"b{i}"],
-                                  lambda a: _tensor(np.asarray(a)[j], dev)))
-    out = {"embed": _leaves(tree["embed"], lambda a: _tensor(a, dev)),
-           "layers": layers,
-           "final_norm": _leaves(tree["final_norm"],
-                                 lambda a: _tensor(a, dev))}
+            layers.append(map_tree(lambda a: _tensor(np.asarray(a)[j], dev),
+                                   tree["scan"][f"b{i}"]))
+    out = {"embed": map_tree(leaf, tree["embed"]), "layers": layers,
+           "final_norm": map_tree(leaf, tree["final_norm"])}
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], dev)
     return out

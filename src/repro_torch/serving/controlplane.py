@@ -24,11 +24,9 @@ This module is jax-free: policies are pure control logic over
 
 PyTorch-port copy of ``repro/serving/controlplane.py`` (framework-free;
 imports rewritten to ``repro_torch``), held to the original by
-``tests/test_torch_control.py``. The estimator registry is
-``TORCH_ESTIMATORS`` (named apart from the JAX package's ``ESTIMATORS``
-for the repo linter's index); the stage-graph planner and the predictive
-autoscalers are not ported and raise ``NotImplementedError`` when a
-config selects them.
+``tests/test_torch_control.py``. Registries carry the port's own names,
+apart from the JAX package's for the repo linter's index: the estimator
+registry is ``TORCH_ESTIMATORS``.
 """
 from __future__ import annotations
 
@@ -184,7 +182,7 @@ TORCH_ESTIMATORS = {
     # ewma_alpha is the paper's pinned smoothing constant (§5, 0.6) —
     # a core-control knob deliberately not exposed on the CLI
     "ewma": lambda serving, trace=None: EwmaEstimator(
-        serving.ewma_alpha),
+        serving.ewma_alpha),  # staticlint: ignore[registry-threading]
     "sliding-window": lambda serving, trace=None: SlidingWindowEstimator(),
     "oracle": lambda serving, trace=None: OracleEstimator(
         _require_trace(trace)),
@@ -415,7 +413,7 @@ def build_control_plane(spec, serving: ServingConfig,
     online f(t) refreshes flow into the planner.
 
     ``scaling`` resolves from the ``serving.scaler`` registry name
-    (serving/autoscaler.py:SCALERS) when not given explicitly; the
+    (serving/autoscaler.py:TORCH_SCALERS) when not given explicitly; the
     default name is "heartbeat", the classic fault sweep. When
     ``serving.warm_start_demand`` is set and the trace is known, the
     first tick provisions for ``trace.rate_at(0)`` instead of the
@@ -431,13 +429,14 @@ def build_control_plane(spec, serving: ServingConfig,
     elif fixed_plan is not None:
         planner = FixedPlanPolicy(fixed_plan)
     else:
+        stage_graph = None
         if getattr(serving, "stage_graph", "off") not in (None, "", "off"):
-            raise NotImplementedError(
-                f"stage_graph={serving.stage_graph!r}: the stage-graph "
-                "planner (serving/microserve.py) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 1)")
+            # lazy: microserve imports this module for the backend base
+            from repro_torch.serving.microserve import make_stage_graph
+            stage_graph = make_stage_graph(serving.stage_graph, serving)
         planner = SolverPlanner(ResourceManager(spec, serving, profiles,
-                                                allocator_options))
+                                                allocator_options,
+                                                stage_graph=stage_graph))
     if scaling is None:
         name = getattr(serving, "scaler", "heartbeat") or "heartbeat"
         if name == "heartbeat":
@@ -445,10 +444,9 @@ def build_control_plane(spec, serving: ServingConfig,
         elif name == "null":
             scaling = NullScaling()
         else:
-            raise NotImplementedError(
-                f"scaler={name!r}: the predictive autoscaler "
-                "(serving/autoscaler.py) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 1); the port has 'heartbeat' and 'null'")
+            # lazy: autoscaler imports this module for the classic policies
+            from repro_torch.serving.autoscaler import make_scaler
+            scaling = make_scaler(name, serving, trace)
     if admission is None:
         admission = getattr(serving, "admission", "accept-all") \
             or "accept-all"

@@ -255,7 +255,10 @@ def test_every_port_module_imports_without_jax():
 
 def test_port_and_smoke_script_import_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-        + [REPO / "chip_smoke.py"]
+        + [REPO / "chip_smoke.py"] \
+        + sorted((REPO / "examples").glob("*_torch.py"))
+    assert {"serve_cascade_torch.py", "train_discriminator_torch.py",
+            "chip_smoke.py"} <= {f.name for f in files}
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

@@ -3,17 +3,18 @@ originals in the JAX package: the serving configs and cascade specs,
 deferral profiles and quality models, the branch-and-bound MILP and the
 cascade solvers, the resource manager, traces, admission policies,
 estimators, the control plane, the cascade builder and search planner,
-the cascade registry, and the simulator's result type.
+the cascade registry, the discrete-event simulator and its fault tools,
+the stage-graph micro-serving engine, the forecasters and autoscalers,
+and the controller bundles of the comparison systems.
 
 Two kinds of pins. The source pins parse each copy and its original
 and require the same syntax tree once imports are renamed (``repro`` ->
 ``repro_torch``), the port's registries carry their own names
-(``TORCH_ADMISSIONS``, ``TORCH_ESTIMATORS``) and docstrings are set
-aside; the only definition left out is ``build_control_plane``, whose
-two unported branches raise, and which is held by behaviour instead. The
-behaviour pins feed the same seeded inputs to both packages and compare
-the results with ``==``, leaving out only ``solve_ms`` (the solver's own
-wall time from ``time.perf_counter``).
+(``TORCH_ADMISSIONS``, ``TORCH_ESTIMATORS``, ``TORCH_SCALERS``,
+``TORCH_FORECASTERS``, ``TORCH_STAGES``, ``TORCH_CONTROLLERS``) and
+docstrings are set aside. The behaviour pins feed the same seeded inputs
+to both packages and compare the results with ``==``, leaving out only
+``solve_ms`` (the solver's own wall time from ``time.perf_counter``).
 """
 import ast
 import dataclasses
@@ -31,8 +32,12 @@ import repro.core.milp as R_milp
 import repro.core.quality as R_qual
 import repro.serving.admission as R_adm
 import repro.serving.autocascade as R_auto
+import repro.serving.autoscaler as R_scale
 import repro.serving.baselines as R_base
 import repro.serving.controlplane as R_cp
+import repro.serving.faults as R_faults
+import repro.serving.forecast as R_fc
+import repro.serving.microserve as R_micro
 import repro.serving.profiles as R_prof
 import repro.serving.simulator as R_sim
 import repro.serving.trace as R_trace
@@ -44,8 +49,12 @@ import repro_torch.core.milp as T_milp
 import repro_torch.core.quality as T_qual
 import repro_torch.serving.admission as T_adm
 import repro_torch.serving.autocascade as T_auto
+import repro_torch.serving.autoscaler as T_scale
 import repro_torch.serving.baselines as T_base
 import repro_torch.serving.controlplane as T_cp
+import repro_torch.serving.faults as T_faults
+import repro_torch.serving.forecast as T_fc
+import repro_torch.serving.microserve as T_micro
 import repro_torch.serving.profiles as T_prof
 import repro_torch.serving.simulator as T_sim
 import repro_torch.serving.trace as T_trace
@@ -82,7 +91,11 @@ def plain(x, drop=WALL_FIELDS):
 # Source pins
 # ---------------------------------------------------------------------------
 RENAMES = {"TORCH_ADMISSIONS": "ADMISSIONS",
-           "TORCH_ESTIMATORS": "ESTIMATORS"}
+           "TORCH_ESTIMATORS": "ESTIMATORS",
+           "TORCH_SCALERS": "SCALERS",
+           "TORCH_FORECASTERS": "FORECASTERS",
+           "TORCH_STAGES": "STAGES",
+           "TORCH_CONTROLLERS": "CONTROLLERS"}
 
 
 class _Normalize(ast.NodeTransformer):
@@ -96,6 +109,10 @@ class _Normalize(ast.NodeTransformer):
 
     def visit_Name(self, node):
         node.id = RENAMES.get(node.id, node.id)
+        return node
+
+    def visit_alias(self, node):
+        node.name = RENAMES.get(node.name, node.name)
         return node
 
     def _strip_doc(self, node):
@@ -131,9 +148,14 @@ def _defs(path: str):
 WHOLE = ["core/confidence.py", "core/quality.py", "core/bnb.py",
          "core/milp.py", "core/allocator.py", "serving/trace.py",
          "serving/admission.py", "serving/autocascade.py",
-         "serving/profiles.py", "serving/controlplane.py"]
-# (module, definitions copied) for the partial copies and the extended
-# config module
+         "serving/profiles.py", "serving/controlplane.py",
+         "serving/forecast.py", "serving/autoscaler.py",
+         "serving/simulator.py", "serving/faults.py",
+         "serving/microserve.py", "serving/baselines.py",
+         "training/data.py"]
+# (module, definitions copied) for the extended config module, and the
+# definitions the simulator and baselines copies began with (each now
+# whole, so these hold as well)
 PARTIAL = [
     ("config/base.py", ("LatencyProfile", "TierSpec", "CascadeSpec",
                         "CascadeConfig", "as_cascade_spec", "tier_rho",
@@ -144,17 +166,12 @@ PARTIAL = [
     ("serving/simulator.py", ("Query", "CONSERVATION_FIELDS", "SimResult")),
     ("serving/baselines.py", ("make_profile", "make_profiles")),
 ]
-# the one definition whose port differs: its unported branches raise
-DIFFERS = {"serving/controlplane.py": ("build_control_plane",)}
 
 
 @pytest.mark.parametrize("path", WHOLE)
 def test_whole_module_copy_matches_its_original(path):
     ref = _defs(f"repro/{path}")
     port = _defs(f"repro_torch/{path}")
-    for name in DIFFERS.get(path, ()):
-        assert name in ref and name in port
-        del ref[name], port[name]
     assert list(port) == list(ref)
     bad = [k for k in ref if ref[k] != port[k]]
     assert bad == []
@@ -513,33 +530,81 @@ def test_estimators_match(name):
     assert out[1] == out[0]
 
 
-def test_unported_control_branches_raise():
+CONTROL_FIELDS = ("estimator", "planner", "thresholds", "scaling",
+                  "admission")
+BRANCHES = [(g, s) for g in ("off", "whole-tier", "micro")
+            for s in sorted(R_scale.SCALERS)]
+
+
+def _control_plane(cp, prof, base, trace, graph, scaler):
+    sv = dataclasses.replace(prof.default_serving("sdturbo"),
+                             stage_graph=graph, scaler=scaler,
+                             warm_pool=1)
+    return sv, cp.build_control_plane(sv.cascade, sv,
+                                      base.make_profiles(sv, 0),
+                                      trace=trace)
+
+
+@pytest.mark.parametrize("graph,scaler", BRANCHES,
+                         ids=[f"{g}-{s}" for g, s in BRANCHES])
+def test_control_branches_build_the_references_policies(graph, scaler):
+    """Every stage graph and every scaler the reference's
+    ``build_control_plane`` builds, the port's builds too: the same
+    policy types, the same stage graph, and the same decisions over a
+    sequence of ticks."""
+    out = []
+    for cp, prof, base, trace, milp in (
+            (R_cp, R_prof, R_base, R_trace, R_milp),
+            (T_cp, T_prof, T_base, T_trace, T_milp)):
+        tr = trace.azure_like_trace(60, seed=4).scale(1, 12)
+        sv, ctl = _control_plane(cp, prof, base, tr, graph, scaler)
+        kinds = [type(getattr(ctl, f)).__name__ for f in CONTROL_FIELDS]
+        graph_of = getattr(ctl.planner, "rm", None)
+        stage = getattr(graph_of, "stage_graph", None)
+        ticks = []
+        for i, demand in enumerate((1.0, 6.0, 14.0, 3.0)):
+            tel = _tel(milp, demand, 2, sv.num_workers)
+            if hasattr(ctl.scaling, "plan_demand"):
+                demand = ctl.scaling.plan_demand(demand, float(2 * i))
+            ticks.append((demand, plain(ctl.planner.plan(tel, demand))))
+        out.append((kinds, plain(stage), ticks))
+    assert out[1] == out[0]
+
+
+@pytest.mark.parametrize("registry", ["SCALERS", "FORECASTERS", "STAGES",
+                                      "CONTROLLERS"])
+def test_new_port_registries_have_the_reference_keys(registry):
+    mods = {"SCALERS": (R_scale, T_scale), "FORECASTERS": (R_fc, T_fc),
+            "STAGES": (R_micro, T_micro), "CONTROLLERS": (R_base, T_base)}
+    ref, port = mods[registry]
+    assert list(getattr(port, f"TORCH_{registry}")) == \
+        list(getattr(ref, registry))
+    # the linter's first-definition index must see both registries
+    assert not hasattr(port, registry)
+
+
+def test_serving_defaults_name_the_new_registries_keys():
+    """The config side of the config->CLI threading: each default is a
+    key of the port's registry, and every key builds the reference's
+    policy."""
     sv = T_prof.default_serving("sdturbo")
-    profiles = T_base.make_profiles(sv, 0)
-    with pytest.raises(NotImplementedError, match="microserve"):
-        T_cp.build_control_plane(
-            sv.cascade, dataclasses.replace(sv, stage_graph="denoise"),
-            profiles)
-    with pytest.raises(NotImplementedError, match="autoscaler"):
-        T_cp.build_control_plane(
-            sv.cascade, dataclasses.replace(sv, scaler="predictive"),
-            profiles)
-    # the branches that are ported build the reference's policies
-    for scaler in ("heartbeat", "null"):
-        for est in ("ewma", "sliding-window"):
-            sv_ = dataclasses.replace(sv, scaler=scaler, estimator=est)
-            got = T_cp.build_control_plane(sv.cascade, sv_, profiles)
-            want = R_cp.build_control_plane(
-                R_prof.CASCADES["sdturbo"],
-                dataclasses.replace(R_prof.default_serving("sdturbo"),
-                                    scaler=scaler, estimator=est),
-                R_base.make_profiles(R_prof.default_serving("sdturbo"), 0))
-            assert [type(getattr(got, f)).__name__ for f in
-                    ("estimator", "planner", "thresholds", "scaling",
-                     "admission")] == \
-                [type(getattr(want, f)).__name__ for f in
-                 ("estimator", "planner", "thresholds", "scaling",
-                  "admission")]
+    assert sv.scaler in T_scale.TORCH_SCALERS
+    assert sv.forecaster in T_fc.TORCH_FORECASTERS
+    assert sv.stage_graph in T_micro.TORCH_STAGES
+    assert sv.controller in T_base.TORCH_CONTROLLERS
+    rsv = R_prof.default_serving("sdturbo")
+    tr = R_trace.azure_like_trace(60, seed=1)
+    ttr = T_trace.azure_like_trace(60, seed=1)
+    for name in T_scale.TORCH_SCALERS:
+        assert type(T_scale.make_scaler(name, sv, ttr)).__name__ == \
+            type(R_scale.make_scaler(name, rsv, tr)).__name__
+    for name in T_fc.TORCH_FORECASTERS:
+        assert type(T_fc.make_forecaster(name, sv, ttr)).__name__ == \
+            type(R_fc.make_forecaster(name, rsv, tr)).__name__
+    for name in T_micro.TORCH_STAGES:
+        assert plain(T_micro.make_stage_graph(name, sv)) == \
+            plain(R_micro.make_stage_graph(name, rsv))
+    assert T_base.list_controllers() == R_base.list_controllers()
 
 
 def test_build_control_plane_signature_matches():
@@ -609,3 +674,102 @@ def test_simresult_accounting_matches():
     assert t.boundary_defer_fractions() == r.boundary_defer_fractions()
     assert t.class_latency_summary() == r.class_latency_summary()
     assert T_sim.CONSERVATION_FIELDS == R_sim.CONSERVATION_FIELDS
+
+
+# ---------------------------------------------------------------------------
+# The simulator, the stage engine, faults, forecasters and the controller
+# bundles: the same trace, seed and config through both packages
+# ---------------------------------------------------------------------------
+def _sim_parts(mods, workers=8, **sv_kw):
+    prof, trace = mods
+    sv = prof.default_serving("sdturbo", num_workers=workers, **sv_kw)
+    return sv, trace.azure_like_trace(90, seed=3).scale(2, 16)
+
+
+R_MODS, T_MODS = (R_prof, R_trace), (T_prof, T_trace)
+
+
+@pytest.mark.parametrize("name", sorted(R_base.CONTROLLERS))
+def test_run_controller_matches_for_every_controller(name):
+    out = []
+    for mods, base in ((R_MODS, R_base), (T_MODS, T_base)):
+        sv, tr = _sim_parts(mods)
+        out.append(plain(base.run_controller(name, tr, sv, seed=1)))
+    assert out[1] == out[0]
+
+
+@pytest.mark.parametrize("graph", ["whole-tier", "micro"])
+def test_stage_graph_simulator_matches(graph):
+    out = []
+    for mods, base, micro in ((R_MODS, R_base, R_micro),
+                              (T_MODS, T_base, T_micro)):
+        sv, tr = _sim_parts(mods, stage_graph=graph,
+                            stage_denoise_steps=4)
+        r = base.run_controller("diffserve", tr, sv, seed=2)
+        g = micro.make_stage_graph(graph, sv)
+        eng = micro.StageGraphSimulator(sv, base.make_profiles(sv, 2), g,
+                                        micro.SimConfig(seed=2))
+        out.append((plain(r), plain(eng.run(tr))))
+    assert out[1] == out[0]
+    assert out[0][1][1]["stage_timeline"] or graph == "whole-tier"
+
+
+def test_simulator_with_faults_hedging_and_scaling_matches():
+    out = []
+    for mods, sim, faults, base in ((R_MODS, R_sim, R_faults, R_base),
+                                    (T_MODS, T_sim, T_faults, T_base)):
+        sv, tr = _sim_parts(mods, workers=10)
+        fails = faults.poisson_failures(np.random.default_rng(5), 10, 90.0,
+                                        mtbf_s=60.0)
+        cfg = sim.SimConfig(seed=4, failure_times=tuple(fails),
+                            scale_events=((30.0, 12), (60.0, 8)),
+                            straggler_prob=0.05)
+        r = sim.Simulator(sv, base.make_profiles(sv, 4), cfg).run(tr)
+        out.append((fails, plain(r)))
+    assert out[1] == out[0]
+    assert out[0][0]                    # the schedule has failures
+
+
+def _snapshot_run(mods, sim, faults, base, path):
+    """tests/test_simulator.py's snapshot procedure: run to t=30, snapshot,
+    restore into a fresh simulator, resume to the end."""
+    prof, trace = mods
+    sv = prof.default_serving("sdturbo", num_workers=16)
+    tr = trace.static_trace(8.0, 60)
+    b = sim.Simulator(sv, base.make_profile(sv, 0), sim.SimConfig(seed=7))
+    arrivals = tr.arrivals(b.rng)
+    b.result.total = len(arrivals)
+    for i, t in enumerate(arrivals):
+        b.push(float(t), b.ARRIVAL,
+               sim.Query(qid=i, arrival=float(t),
+                         deadline=float(t) + sv.cascade.slo_s))
+    b.push(0.0, b.CONTROL)
+    b._apply_plan_now(first=True)
+    faults.resume(b, end_t=30.0)
+    faults.snapshot(b, str(path))
+    c = sim.Simulator(sv, base.make_profile(sv, 0), sim.SimConfig(seed=7))
+    faults.restore(c, str(path))
+    return faults.resume(c, end_t=tr.duration_s + 4 * sv.cascade.slo_s,
+                         final=True)
+
+
+def test_snapshot_restore_resume_matches(tmp_path):
+    ref = _snapshot_run(R_MODS, R_sim, R_faults, R_base, tmp_path / "r")
+    port = _snapshot_run(T_MODS, T_sim, T_faults, T_base, tmp_path / "t")
+    assert plain(port) == plain(ref)
+    assert ref.completed > 0
+
+
+@pytest.mark.parametrize("name", sorted(R_fc.FORECASTERS))
+def test_forecasters_match(name):
+    rates = np.random.default_rng(9).gamma(2.0, 3.0, 120)
+    out = []
+    for prof, fc, trace in ((R_prof, R_fc, R_trace),
+                            (T_prof, T_fc, T_trace)):
+        sv = prof.default_serving("sdturbo", control_period_s=2.0)
+        f = fc.make_forecaster(name, sv, trace.azure_like_trace(240, 1))
+        got = []
+        for i, q in enumerate(rates):
+            got.append(f.step(float(q), 2.0 * i, 6.0))
+        out.append(got)
+    assert out[1] == out[0]

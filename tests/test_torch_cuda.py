@@ -792,3 +792,66 @@ def test_live_control_loop_on_cuda(cuda):
     assert len(backend.plan_timeline) >= 3
     assert counts["fused_groupnorm"] > 0 and counts["flash_attention"] > 0
     assert backend._conf_samples[0]
+
+
+# ---------------------------------------------------------------------------
+# The offline phase: the discriminator's train step and the grad guard
+# ---------------------------------------------------------------------------
+def test_disc_train_step_on_cuda_matches_cpu(cuda):
+    """The full-width discriminator (64x64x4 inputs) on the card against
+    the same on the CPU, on the unfused route (no kernel launches): the
+    loss and every gradient leaf at the models' 5e-5 (float32 cuDNN
+    convolutions, TF32 off, against the CPU's), then one train step's
+    parameters at 5e-5 with AdamW's eps at 1e-6, as in
+    tests/test_torch_training.py: at the default eps Adam's first step
+    moves an element by about lr * sign(g), which no wrong gradient of
+    the right sign would show."""
+    from repro_torch.models.efficientnet import (DiscriminatorConfig,
+                                                 init_discriminator)
+    from repro_torch.training.discriminator import (loss_and_grads,
+                                                    make_disc_train_step)
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.tree import leaves, map_tree
+    cfg = DiscriminatorConfig(in_channels=4)
+    p_cpu = init_discriminator(cfg, seed=3, device="cpu")
+    p_gpu = map_tree(lambda t: t.to(cuda), p_cpu)
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((32, 64, 64, 4), generator=g) * 2 - 1
+    y = (torch.arange(32) % 2).to(torch.int32)
+    ops.reset_launch_counts()
+    lg, ag, gg = loss_and_grads(p_gpu, cfg, x.to(cuda), y.to(cuda))
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == 0
+    lc, ac, gc = loss_and_grads(p_cpu, cfg, x, y)
+    assert float(lg) == pytest.approx(float(lc), abs=5e-5)
+    assert float(ag) == float(ac)
+    assert len(leaves(gg)) == len(leaves(gc)) == len(leaves(p_cpu))
+    for a, b in zip(leaves(gg), leaves(gc)):
+        torch.testing.assert_close(a.cpu(), b, atol=5e-5, rtol=5e-5)
+    ocfg = OptimizerConfig(peak_lr=3e-3, warmup_steps=20, total_steps=40,
+                           weight_decay=1e-4, eps=1e-6)
+    init, step = make_disc_train_step(cfg, ocfg)
+    pg, _, mg = step(p_gpu, init(p_gpu), x.to(cuda), y.to(cuda))
+    pc, _, mc = step(p_cpu, init(p_cpu), x, y)
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), abs=5e-5)
+    for a, b in zip(leaves(pg), leaves(pc)):
+        torch.testing.assert_close(a.cpu(), b, atol=5e-5, rtol=0)
+
+
+def test_kernel_wrappers_refuse_grad_on_cuda(cuda):
+    """No kernel has a backward: on the card a call autograd would
+    differentiate raises and names the unfused route; without grad the
+    same call launches."""
+    x = torch.randn((2, 8, 8, 16), device=cuda, requires_grad=True)
+    scale = torch.ones(16, device=cuda)
+    bias = torch.zeros(16, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="unfused"):
+        ops.fused_groupnorm(x, scale, bias, groups=4)
+    q = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="unfused"):
+        ops.flash_attention(q, q.detach(), q.detach(), causal=False)
+    assert sum(ops.launch_counts().values()) == 0
+    with torch.no_grad():
+        ops.fused_groupnorm(x, scale, bias, groups=4)
+    assert ops.launch_counts()["fused_groupnorm"] == 1
