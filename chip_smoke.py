@@ -131,12 +131,42 @@ without RoPE, MoE), each after the previous model's tensors are freed:
     layer; prefill time, median decode step against its bytes bound,
     ``torch.profiler`` traces of one decode step and one prefill.
 
-13. The wall time and the card's line again, one JSON line listing
+The rest of the LM family (``lm_family_phase``), each model freed
+before the next, in bfloat16 with random weights:
+
+13. qwen2-vl-7b at full size (28 layers, no embedding table): 4 x 512
+    prompt embeddings with M-RoPE positions t = 0 and (h, w) over a
+    16 x 32 patch grid, 32 decode steps fed the last embedding at text
+    positions 32, 33, ...; the logits check (relative 5e-2), its kernel
+    calls held and timed at the recorded shapes (GQA group 7), the
+    served run as in 8; then the same prompt prefilled in 4 chunks of
+    128 (cache_index 0, 128, 256, 384), counters zeroed just before and
+    read just after: its last-position logits within 5e-2 of the
+    one-shot prefill's, the later chunks on the ``wgmma`` route's query
+    offset (84 launches), held against the plain version and timed
+    beside SDPA with the explicit mask at the chunks' shapes.
+14. deepseek-v3 at full width (MLA ranks q 1536, kv 512, rope 64; 256
+    experts top-8 and 1 shared; vocab 129280), depth cut to its 3 dense
+    prefix layers and 1 MoE layer, plus the multi-token prediction
+    block (53 GB): the logits check, its RMSNorm (MLA's query and latent
+    norms too) and SwiGLU calls held and timed, the served run with 16
+    absorbed decode steps, then ``mtp_logits`` from the prefill's hidden
+    state through the kernels against the plain versions, with its
+    launches and both aux losses.
+15. ``LMCascade`` over ``greedy_lm_step`` stages, smollm-135m at full
+    size then yi-9b at full width and depth: 8 prompts of 64 tokens, 16
+    new tokens, the threshold the median of stage 0's confidences;
+    counters zeroed around ``run_batch``; each output must be its
+    stage's own, and some but not all queries deferred. Then the serving
+    CLI (``repro_torch.launch.serve.main``, ``--cascade sdturbo
+    --duration 60``) in process, its report logged.
+16. The wall time and the card's line again, one JSON line listing
     every ported kernel, with its launches by path (diffusion, offline,
-    live, lm, xlstm, jamba) and, for flash attention, its three routes
-    (``tf32x3`` over one UNet forward, ``wgmma`` over one Yi-9B prefill,
-    ``cuda_core`` at the UNet's inputs) and, for the mLSTM and the
-    selective scan, their two routes, with their times and launches;
+    live, lm, xlstm, jamba, lm_family) and, for flash attention, its
+    routes (``tf32x3`` over one UNet forward, ``wgmma`` over one Yi-9B
+    prefill, ``cuda_core`` at the UNet's inputs, ``wgmma_offset`` over
+    one chunked qwen2-vl prompt) and, for the mLSTM and the selective
+    scan, their two routes, with their times and launches;
     flash attention's float32 route and GroupNorm carry ``was_ms``,
     their earlier kernel's time where this run measured it; then, last,
     the result line
@@ -241,6 +271,18 @@ PLAIN_REC_ITERS = 3
 # decode_32k's outputs are means over 32769 values (typically ~0.01):
 # its bf16 atol is 2e-2 of the largest |output|, not 2e-2 absolute
 DECODE_32K_REL_ATOL = 2e-2
+# the rest of the LM family: qwen2-vl-7b at full size (embedding inputs,
+# M-RoPE over a 16 x 32 patch grid at t = 0, then text positions from
+# 32); deepseek-v3 at full width, its depth cut to the 3 dense prefix
+# layers, 1 MoE layer and the multi-token prediction block; a prompt
+# prefilled in chunks of 128; the LM cascade smollm-135m -> yi-9b at
+# batch 8 with 16 new tokens; the serving CLI in process
+QWEN_ARCH, QWEN_GRID = "qwen2-vl-7b", (16, 32)
+DS_ARCH, DS_LAYERS, DS_STEPS = "deepseek-v3-671b", 4, 16
+CHUNK = 128
+CASCADE_ARCHS = ("smollm-135m", "yi-9b")
+CASCADE_BATCH, CASCADE_PROMPT, CASCADE_NEW = 8, 64, 16
+SERVE_ARGV = ["--cascade", "sdturbo", "--duration", "60"]
 
 
 def log(msg: str) -> None:
@@ -1319,11 +1361,15 @@ def recorded_calls(calls):
         calls.append(("swiglu", tuple(g.shape), dt(g), None))
         return saved["swiglu"](g, u)
 
-    def flash(q, k, v, *, causal=True, kv_len=None):
-        calls.append(("flash", (tuple(q.shape), tuple(k.shape)), dt(q),
-                      causal))
+    def flash(q, k, v, *, causal=True, kv_len=None, q_offset=0):
+        if q_offset:
+            calls.append(("flash_offset", (tuple(q.shape), tuple(k.shape)),
+                          dt(q), (q_offset, kv_len)))
+        else:
+            calls.append(("flash", (tuple(q.shape), tuple(k.shape)), dt(q),
+                          causal))
         return saved["flash_attention"](q, k, v, causal=causal,
-                                        kv_len=kv_len)
+                                        kv_len=kv_len, q_offset=q_offset)
 
     def decode(q, k, v, valid_len):
         calls.append(("decode", (tuple(q.shape), tuple(k.shape)), dt(q),
@@ -1362,17 +1408,23 @@ def recorded_calls(calls):
             setattr(ops, name, fn)
 
 
-def prefill_and_first_decode(torch, cfg, params, prompts, next_tok=None):
+def prefill_and_first_decode(torch, cfg, params, prompts, next_tok=None,
+                             feed=None):
     """(prefill logits, first decode logits, the decoded token, the
     decode step's greedy token) on a fresh cache; ``next_tok`` fixes the
-    decoded token (else the prefill's greedy one)."""
+    decoded token (else the prefill's greedy one). An embedding-input
+    model's ``feed`` is (prompt positions, the decode step's input, its
+    positions): its prompts are embeddings."""
     from repro_torch.launch.steps import serve_decode, serve_prefill
     from repro_torch.models.kvcache import init_cache
-    B, S = prompts.shape
+    B, S = prompts.shape[:2]
+    pos, step_in, step_pos = feed or (None, None, None)
     cache = init_cache(cfg, B, 2 * S, DEV)
-    lp, cache = serve_prefill(params, cfg, cache, prompts)
+    lp, cache = serve_prefill(params, cfg, cache, prompts, pos)
     tok = lp.argmax(-1, keepdim=True) if next_tok is None else next_tok
-    ld, cache = serve_decode(params, cfg, cache, tok, S)
+    ld, cache = serve_decode(params, cfg, cache,
+                             tok if step_in is None else step_in, S,
+                             step_pos)
     return lp.float(), ld.float(), tok, ld.argmax(-1)
 
 
@@ -1380,17 +1432,17 @@ def rel_diff(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def lm_logits_check(torch, cfg, params, prompts, rel_tol, what):
+def lm_logits_check(torch, cfg, params, prompts, rel_tol, what, feed=None):
     """The kernel path's prefill and first decode logits against the same
     forward through the plain versions; returns the kernel path's calls
-    and the numbers."""
+    and the numbers. ``feed``: as ``prefill_and_first_decode``'s."""
     calls = []
     with recorded_calls(calls):
         kp, kd, tok, ktok = prefill_and_first_decode(torch, cfg, params,
-                                                     prompts)
+                                                     prompts, feed=feed)
     with plain_ops():
         pp, pd, _, ptok = prefill_and_first_decode(torch, cfg, params,
-                                                   prompts, tok)
+                                                   prompts, tok, feed)
     torch.cuda.synchronize()
     for name, t in (("prefill", kp), ("decode", kd)):
         if not torch.isfinite(t).all() or t.shape != (prompts.shape[0],
@@ -1414,23 +1466,30 @@ def path_counts(cfg, prefills: int, decodes: int):
     """Launches of every kernel over ``prefills`` prefill and ``decodes``
     decode forwards of ``cfg``'s path: per forward, with RMSNorm, one
     a layer for ``ln1``, one for ``ln2`` fused with the residual add
-    (layers with an FFN) and one for the final norm; SwiGLU once per
-    SwiGLU MLP or MoE layer; attention once per attention layer (flash
-    in prefill, decode attention at S = 1); each recurrence once per
-    layer of its mixer."""
+    (layers with an FFN), one for the final norm, and an MLA layer's
+    latent and (with a query rank) query norms; SwiGLU once per SwiGLU
+    MLP or MoE layer, and once more for an MoE layer's shared expert;
+    attention once per attention layer (flash in prefill, decode
+    attention at S = 1; MLA's is plain); each recurrence once per layer
+    of its mixer."""
     from repro_torch.kernels import ops
     specs = cfg.flat_pattern()
     fwd = prefills + decodes
     mixers = Counter(mixer for mixer, _ in specs)
     n_ffn = sum(ffn is not None for _, ffn in specs)
-    n_swiglu = sum(ffn == "moe" or (ffn == "mlp" and cfg.mlp == "swiglu")
+    swiglu = cfg.mlp == "swiglu"
+    n_swiglu = sum(ffn == "moe" or (ffn == "mlp" and swiglu)
                    for _, ffn in specs)
+    if cfg.moe.num_shared_experts and swiglu:
+        n_swiglu += sum(ffn == "moe" for _, ffn in specs)
+    n_mla_norms = mixers["mla"] * (
+        1 + bool(cfg.mla and cfg.mla.q_lora_rank))
     rms = cfg.norm == "rmsnorm"
     want = dict.fromkeys(ops.KERNELS, 0)
     want.update({"flash_attention": mixers["attn"] * prefills,
                  "decode_attention": mixers["attn"] * decodes,
-                 "fused_rmsnorm": (len(specs) + n_ffn + 1) * fwd if rms
-                 else 0,
+                 "fused_rmsnorm": (len(specs) + n_ffn + 1 + n_mla_norms)
+                 * fwd if rms else 0,
                  "swiglu": n_swiglu * fwd,
                  "mlstm_chunk": mixers["mlstm"] * fwd,
                  "mamba_scan": mixers["mamba"] * fwd})
@@ -1702,28 +1761,38 @@ def _named(tree, prefix=""):
         yield prefix.rstrip("/"), tree
 
 
-def serve_lm(torch, cfg, params):
+def serve_lm(torch, cfg, params, steps=LM_STEPS, feed=None):
     """The slice: one prefill of LM_BATCH prompts of LM_PROMPT tokens and
-    LM_STEPS greedy decode steps, launch counters zeroed just before and
-    read just after; then a profiled decode step."""
+    ``steps`` greedy decode steps, launch counters zeroed just before and
+    read just after; then a profiled decode step. An embedding-input
+    model's ``feed`` is (prompt embeddings, their positions, the decode
+    steps' positions by step): each step is fed the last prompt
+    embedding."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import cache_len, serve_decode, serve_prefill
     from repro_torch.models import layers as L
     from repro_torch.models.kvcache import init_cache
     T = cache_len(ShapeConfig("smoke_decode", "decode",
-                              LM_PROMPT + LM_STEPS, LM_BATCH))
+                              LM_PROMPT + steps, LM_BATCH))
     g = torch.Generator(device=DEV).manual_seed(50)
-    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
-                            generator=g, device=DEV)
+    if feed is None:
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=g, device=DEV)
+        pos, step_pos = None, [None] * steps
+    else:
+        prompts, pos, step_pos = feed
+
+    def step_input(tokens):
+        return tokens[-1] if feed is None else prompts[:, -1:]
     cache = init_cache(cfg, LM_BATCH, T, DEV)
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
-              for _ in range(LM_STEPS)]
+              for _ in range(steps)]
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = serve_prefill(params, cfg, cache, prompts)
+    logits, cache = serve_prefill(params, cfg, cache, prompts, pos)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     tokens = [logits.argmax(-1, keepdim=True)]
@@ -1741,8 +1810,9 @@ def serve_lm(torch, cfg, params):
     try:
         for step, (e0, e1) in enumerate(events):
             e0.record()
-            logits, cache = serve_decode(params, cfg, cache, tokens[-1],
-                                         LM_PROMPT + step)
+            logits, cache = serve_decode(params, cfg, cache,
+                                         step_input(tokens),
+                                         LM_PROMPT + step, step_pos[step])
             e1.record()
             tokens.append(logits.argmax(-1, keepdim=True))
             finite.append(torch.isfinite(logits).all())
@@ -1751,15 +1821,15 @@ def serve_lm(torch, cfg, params):
         L.moe_apply = moe_apply
     decode_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-    want = path_counts(cfg, 1, LM_STEPS)
+    want = path_counts(cfg, 1, steps)
     step_ms = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     median = step_ms[len(step_ms) // 2]
     gen = torch.cat(tokens, dim=1)
     log(f"slice {cfg.name} {cfg.dtype}: prefill {LM_BATCH}x{LM_PROMPT} "
-        f"{prefill_s * 1e3:.2f} ms; {LM_STEPS} decode steps: per-token "
+        f"{prefill_s * 1e3:.2f} ms; {steps} decode steps: per-token "
         f"latency median {median:.3f} ms (min {step_ms[0]:.3f}, max "
         f"{step_ms[-1]:.3f}; CUDA events), host wall "
-        f"{decode_s * 1e3 / LM_STEPS:.3f} ms a step")
+        f"{decode_s * 1e3 / steps:.3f} ms a step")
     log(f"launches over the {cfg.name} slice: {counts} (expected {want})")
     if counts != want:
         fail(f"{cfg.name} launch counts {counts} != expected {want}")
@@ -1772,7 +1842,7 @@ def serve_lm(torch, cfg, params):
             continue
         rec_routes[name] = ops.route_counts(name)
         exp = {REC_ROUTES[kind]["prompt"]: layers,
-               REC_ROUTES[kind]["step"]: layers * LM_STEPS}
+               REC_ROUTES[kind]["step"]: layers * steps}
         log(f"{name} launches by route over the {cfg.name} run: "
             f"{rec_routes[name]} (expected {exp})")
         if rec_routes[name] != exp:
@@ -1783,26 +1853,33 @@ def serve_lm(torch, cfg, params):
     if not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
         fail(f"{cfg.name} slice: generated tokens outside the vocabulary")
     # the decode step's bytes bound: every weight but the embedding table
-    # (the step gathers 4 of its rows) and the experts no token of the
-    # step is routed to, the live K/V rows once, and every recurrent
-    # state read and written once
+    # (the step gathers 4 of its rows), the experts no token of the step
+    # is routed to and the multi-token prediction block (training only),
+    # the live K/V (MLA: latent) rows once, and every recurrent state
+    # read and written once
     experts = ("e_wi", "e_wg", "e_wo")
-    e_bytes = sum(t.numel() * t.element_size() for name, t in _named(params)
+    served = [(name, t) for name, t in _named(params)
+              if not name.startswith("mtp/")]
+    e_bytes = sum(t.numel() * t.element_size() for name, t in served
                   if name.rsplit("/", 1)[-1] in experts)
-    w_bytes = sum(t.numel() * t.element_size() for name, t in _named(params)
+    w_bytes = sum(t.numel() * t.element_size() for name, t in served
                   if name != "embed/embedding") - e_bytes
-    n_attn = sum(mixer == "attn" for mixer, _ in cfg.flat_pattern())
-    kv_bytes = 2 * n_attn * LM_BATCH * (LM_PROMPT + LM_STEPS // 2) \
-        * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    mixers = Counter(mixer for mixer, _ in cfg.flat_pattern())
+    live = LM_BATCH * (LM_PROMPT + steps // 2)
+    kv_bytes = 2 * mixers["attn"] * live * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2
+    if mixers["mla"]:
+        kv_bytes += mixers["mla"] * live * (cfg.mla.kv_lora_rank
+                                            + cfg.mla.qk_rope_head_dim) * 2
     state_bytes = 2 * sum(t.numel() * t.element_size() for entry in cache
                           for name, t in entry.items()
-                          if name not in ("k", "v"))
-    routed_bytes = [0.0] * LM_STEPS
+                          if name not in ("k", "v", "c_kv", "k_rope"))
+    routed_bytes = [0.0] * steps
     n_moe = sum(ffn == "moe" for _, ffn in cfg.flat_pattern())
     if n_moe:
-        if len(routed) != n_moe * LM_STEPS:
+        if len(routed) != n_moe * steps:
             fail(f"{cfg.name}: {len(routed)} MoE calls recorded over the "
-                 f"decode steps, expected {n_moe * LM_STEPS}")
+                 f"decode steps, expected {n_moe * steps}")
         per_expert = e_bytes / (n_moe * cfg.moe.num_experts)
         for i, (router, x) in enumerate(routed):
             probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router,
@@ -1811,12 +1888,12 @@ def serve_lm(torch, cfg, params):
             routed_bytes[i // n_moe] += hit.numel() * per_expert
     step_bounds = [(w_bytes + r + kv_bytes + state_bytes) / PEAK_BYTES_S
                    * 1e3 for r in routed_bytes]
-    step_bound = sum(step_bounds) / LM_STEPS
-    mean_routed = sum(routed_bytes) / LM_STEPS
-    log(f"decode step bound (mean of the {LM_STEPS} steps): "
+    step_bound = sum(step_bounds) / steps
+    mean_routed = sum(routed_bytes) / steps
+    log(f"decode step bound (mean of the {steps} steps): "
         f"{w_bytes / 1e9:.2f} GB of weights but experts + "
         f"{mean_routed / 1e9:.2f} GB of the experts the step routes to + "
-        f"{kv_bytes / 1e9:.3f} GB of live K/V (mean step) + "
+        f"{kv_bytes / 1e9:.3f} GB of live K/V or latent (mean step) + "
         f"{state_bytes / 1e9:.4f} GB of recurrent state in and out at "
         f"{PEAK_BYTES_S / 1e12:.2f} TB/s = {step_bound:.3f} ms (steps "
         f"{min(step_bounds):.3f}..{max(step_bounds):.3f}); the median "
@@ -1829,16 +1906,18 @@ def serve_lm(torch, cfg, params):
             f"{mean_routed / 1e9:.2f}; its step reads {disp:.3f} ms of "
             f"bytes, {disp / step_bound:.2f}x the step's bound")
     prof = trace_call(torch, lambda: serve_decode(
-        params, cfg, cache, tokens[-1], LM_PROMPT + LM_STEPS - 1))
+        params, cfg, cache, step_input(tokens), LM_PROMPT + steps - 1,
+        step_pos[-1]))
     log_trace(f"{cfg.name} decode step b={LM_BATCH}", prof)
     # the same prompts again: rows 0..LM_PROMPT-1 get the same K/V (a
     # recurrent state just runs on: the work is the same)
     prof_prefill = trace_call(torch, lambda: serve_prefill(
-        params, cfg, cache, prompts))
+        params, cfg, cache, prompts, pos))
     log_trace(f"{cfg.name} prefill {LM_BATCH}x{LM_PROMPT}", prof_prefill)
-    return counts, {"prefill_ms": prefill_s * 1e3, "decode_step_ms": step_ms,
+    return counts, {"prefill_ms": prefill_s * 1e3, "steps": steps,
+                    "decode_step_ms": step_ms,
                     "decode_step_median_ms": median,
-                    "decode_host_wall_ms": decode_s * 1e3 / LM_STEPS,
+                    "decode_host_wall_ms": decode_s * 1e3 / steps,
                     "decode_step_bound_ms": step_bound,
                     "decode_step_bounds_ms": step_bounds,
                     "weight_bytes": w_bytes, "routed_expert_bytes":
@@ -2113,6 +2192,381 @@ def recurrent_phase(torch, arch):
     return entry, counts, details
 
 
+# ---------------------------------------------------------------------------
+# the rest of the LM family: qwen2-vl (M-RoPE, embedding inputs),
+# chunked prefill, deepseek-v3 (MLA, MTP), LMCascade, the serving CLI
+# ---------------------------------------------------------------------------
+def qwen_feed(torch, cfg, g, steps):
+    """qwen2-vl's prompt and positions: LM_BATCH x LM_PROMPT embeddings of
+    a standard normal (bf16); M-RoPE positions t = 0 and (h, w) over the
+    QWEN_GRID patch grid row by row (three distinct axes); each decode
+    step at text position max + 1 + step on every axis."""
+    rows, cols = QWEN_GRID
+    if rows * cols != LM_PROMPT:
+        fail(f"the patch grid {QWEN_GRID} is not {LM_PROMPT} tokens")
+    emb = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=g,
+                      device=DEV).to(torch.bfloat16)
+    r = torch.arange(LM_PROMPT, device=DEV)
+    pos = torch.stack([torch.zeros_like(r), r // cols, r % cols])
+    pos = pos[:, None, :].expand(3, LM_BATCH, LM_PROMPT).contiguous()
+    start = max(rows, cols)
+    step_pos = [torch.full((3, LM_BATCH, 1), start + i, device=DEV)
+                for i in range(steps)]
+    return emb, pos, step_pos
+
+
+def _offset_case(torch, g, qs, ks, q_off):
+    """Inputs, calls, bytes and flops of one flash call with a query
+    offset: the chunk's queries against the cache's first q_off + Sq
+    rows. The library call is SDPA with the offset's causal mask given
+    explicitly (a boolean mask; GQA by ``enable_gqa``)."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+    F = torch.nn.functional
+    B, Sq, H, D = qs
+    kv = q_off + Sq
+    q = torch.randn(qs, generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
+    mask = torch.ones(Sq, kv, dtype=torch.bool, device=DEV).tril(q_off)
+    qt, kt, vt = (q.transpose(1, 2), k[:, :kv].transpose(1, 2),
+                  v[:, :kv].transpose(1, 2))
+    pairs = sum(q_off + r + 1 for r in range(Sq))
+    return (lambda: tflash.flash_attention(q, k, v, causal=True, kv_len=kv,
+                                           q_offset=q_off),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True, kv_len=kv,
+                                            q_offset=q_off),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask,
+                                                   enable_gqa=True),
+            (2 * q.numel() + 2 * B * kv * ks[2] * D) * 2,
+            4.0 * B * H * pairs * D)
+
+
+def check_offset_route(torch, calls, what):
+    """The wgmma route with a query offset against its plain version at
+    each recorded offset call's shape (bf16: held and timed; float32 is
+    not its route), with SDPA under the explicit mask as the library
+    time. Returns the rows."""
+    mult = Counter((shape, extra) for kind, shape, _, extra in calls
+                   if kind == "flash_offset")
+    if not mult:
+        fail(f"{what}: no flash call with a query offset was recorded")
+    g = torch.Generator(device=DEV).manual_seed(91)
+    rows = []
+    for ((qs, ks), (q_off, kv)), n in sorted(mult.items(), key=str):
+        kernel, plain, library, nbytes, flops = _offset_case(
+            torch, g, qs, ks, q_off)
+        err, tol = _hold(torch, "flash_attention", kernel(), plain(),
+                         "bfloat16")
+        row = {"kind": "flash_offset", "q": qs, "k": ks, "q_offset": q_off,
+               "kv_len": kv, "dtype": "bfloat16", "per_path": n,
+               "max_abs_err": err, "route": "wgmma",
+               **_time_rows(torch, kernel, plain, library, nbytes, flops,
+                            "bfloat16")}
+        rows.append(row)
+        _report("flash_attention", row, f"{what} offset route q {qs} k/v "
+                f"{ks} q_offset {q_off} kv_len {kv} bfloat16 x{n} "
+                f"(tol {tol})")
+    return rows
+
+
+def chunked_prefill(torch, cfg, params, emb, pos, one_shot):
+    """The prompt prefilled in chunks of CHUNK at cache_index 0, CHUNK,
+    ...; every launch counter zeroed just before and read just after:
+    the later chunks' attention on the wgmma route's query offset. Their
+    last-position logits must equal the one-shot prefill's
+    (``one_shot``) within LM_BF16_REL."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.transformer import forward
+    chunks = LM_PROMPT // CHUNK
+    cache = init_cache(cfg, LM_BATCH, LM_PROMPT, DEV)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(chunks):
+            sl = slice(i * CHUNK, (i + 1) * CHUNK)
+            logits, cache, _ = forward(params, cfg, emb[:, sl],
+                                       positions=pos[..., sl], cache=cache,
+                                       cache_index=i * CHUNK,
+                                       mode="prefill")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    offset = ops.offset_launches()
+    routes = ops.route_counts()
+    want = path_counts(cfg, chunks, 0)
+    n_attn = sum(m == "attn" for m, _ in cfg.flat_pattern())
+    last = logits[:, -1].float()
+    err = rel_diff(last, one_shot)
+    log(f"chunked prefill {cfg.name}: {chunks} chunks of {CHUNK} at "
+        f"cache_index {[i * CHUNK for i in range(chunks)]} in "
+        f"{wall * 1e3:.2f} ms; last-position logits vs the one-shot "
+        f"prefill max|diff|/max|logit| {err:.3e} (tolerance {LM_BF16_REL}); "
+        f"launches {counts} (expected {want}); flash by route {routes}, "
+        f"with a query offset {offset} (expected {(chunks - 1) * n_attn})")
+    if counts != want or offset != (chunks - 1) * n_attn \
+            or routes["wgmma"] != chunks * n_attn:
+        fail(f"chunked prefill {cfg.name}: launches {counts}, offset "
+             f"{offset}, routes {routes}")
+    if not torch.isfinite(last).all() or err > LM_BF16_REL:
+        fail(f"chunked prefill {cfg.name}: logits differ from the one-shot "
+             f"prefill by {err:.3e} > {LM_BF16_REL}")
+    return counts, {"wall_ms": wall * 1e3, "rel_diff": err,
+                    "offset_launches": offset, "flash_routes": routes}
+
+
+def qwen_phase(torch):
+    """qwen2-vl-7b at full size in bf16: the logits check (embeddings and
+    M-RoPE positions), its kernels at the path's shapes (GQA group 7),
+    the served run, and the chunked prefill with the offset route held
+    and timed at its shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import serve_prefill
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.transformer import count_params, init_params
+    cfg = get_config(QWEN_ARCH)
+    details = {}
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=70, device=DEV)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for _, t in _named(params))
+    log(f"{QWEN_ARCH} random init at full size, {cfg.num_layers} layers: "
+        f"{count_params(cfg) / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB "
+        f"bfloat16 in {time.perf_counter() - t0:.2f} s (no embedding "
+        f"table: the inputs are embeddings)")
+    details["param_bytes"] = n_bytes
+    g = torch.Generator(device=DEV).manual_seed(71)
+    emb, pos, step_pos = qwen_feed(torch, cfg, g, LM_STEPS)
+    calls, details["bf16"] = lm_logits_check(
+        torch, cfg, params, emb, LM_BF16_REL,
+        f"{QWEN_ARCH} full size bfloat16 (M-RoPE t=0, (h, w) over "
+        f"{QWEN_GRID[0]}x{QWEN_GRID[1]})", feed=(pos, emb[:, -1:],
+                                                step_pos[0]))
+    path_calls(calls, cfg)
+    details["kernels"], _ = hold_lm_calls(
+        torch, torch.Generator(device=DEV).manual_seed(72), calls,
+        ("rmsnorm", "rmsnorm_res", "swiglu", "flash", "decode"),
+        f"{QWEN_ARCH} ")
+    counts, details["slice"] = serve_lm(torch, cfg, params, steps=LM_STEPS,
+                                        feed=(emb, pos, step_pos))
+    # the one-shot prefill, then the same prompt in chunks
+    cache = init_cache(cfg, LM_BATCH, LM_PROMPT, DEV)
+    one_shot, _ = serve_prefill(params, cfg, cache, emb, pos)
+    del cache
+    ccounts, details["chunked"] = chunked_prefill(
+        torch, cfg, params, emb, pos, one_shot.float())
+    chunk_calls = []
+    with recorded_calls(chunk_calls):
+        chunked_prefill(torch, cfg, params, emb, pos, one_shot.float())
+    details["offset_route"] = check_offset_route(torch, chunk_calls,
+                                                 QWEN_ARCH)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] + ccounts[k] for k in counts}, details
+
+
+def deepseek_phase(torch):
+    """deepseek-v3 at full width, depth cut to DS_LAYERS (the 3 dense
+    prefix layers and 1 MoE layer) plus the multi-token prediction block:
+    the logits check, its RMSNorm and SwiGLU calls at the path's shapes,
+    the served run (DS_STEPS absorbed decode steps), then ``mtp_logits``
+    from the prefill's hidden state through the kernels and the plain
+    versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.transformer import (count_params, forward,
+                                                init_params, mtp_logits)
+    full = get_config(DS_ARCH)
+    cfg = dataclasses.replace(full, num_layers=DS_LAYERS)
+    details = {"layers": DS_LAYERS, "pattern": [list(s) for s in
+                                                cfg.flat_pattern()]}
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=75, device=DEV)
+    torch.cuda.synchronize()
+    parts = Counter()
+    for name, t in _named(params):
+        head = name.split("/")[0]
+        key = head if head != "layers" else f"layer {name.split('/')[1]}"
+        parts[key] += t.numel() * t.element_size()
+    n_bytes = sum(parts.values())
+    log(f"{DS_ARCH} random init at full width, depth cut to {DS_LAYERS} "
+        f"layers {cfg.flat_pattern()} + the MTP block: "
+        f"{count_params(cfg) / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB "
+        f"bfloat16 in {time.perf_counter() - t0:.2f} s; by part (GB): "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items()))
+    details["param_bytes"] = dict(parts)
+    g = torch.Generator(device=DEV).manual_seed(76)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=DEV)
+    calls, details["bf16"] = lm_logits_check(
+        torch, cfg, params, prompts, LM_BF16_REL,
+        f"{DS_ARCH} full width {DS_LAYERS} layers bfloat16")
+    path_calls(calls, cfg)
+    details["kernels"], _ = hold_lm_calls(
+        torch, torch.Generator(device=DEV).manual_seed(77), calls,
+        ("rmsnorm", "rmsnorm_res", "swiglu"), f"{DS_ARCH} ")
+    counts, details["slice"] = serve_lm(torch, cfg, params, steps=DS_STEPS)
+    # the multi-token prediction head from the prefill's hidden state:
+    # hidden_i with the embedding of token i+1 predicts token i+2
+    nxt = torch.cat([prompts[:, 1:], prompts[:, :1]], dim=1)
+
+    def mtp():
+        with torch.no_grad():
+            cache = init_cache(cfg, LM_BATCH, LM_PROMPT, DEV)
+            _, _, aux, hidden = forward(params, cfg, prompts, cache=cache,
+                                        mode="prefill", return_hidden=True)
+            lg, mtp_aux = mtp_logits(params, cfg, hidden, nxt)
+        return lg[:, -1].float(), aux.float(), mtp_aux.float()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    k_lg, k_aux, k_maux = mtp()
+    torch.cuda.synchronize()
+    mtp_ms = (time.perf_counter() - t0) * 1e3
+    mcounts = ops.launch_counts()
+    want = path_counts(cfg, 1, 0)
+    block = dataclasses.replace(cfg, num_layers=1, prefix_pattern=(),
+                                period_pattern=(cfg.period_pattern[-1],))
+    for name, n in path_counts(block, 1, 0).items():
+        # the MTP block, its two input norms; no final norm of its own
+        # beyond the shared one it applies again
+        want[name] += n
+    want["fused_rmsnorm"] += 2
+    with plain_ops():
+        p_lg, p_aux, p_maux = mtp()
+    err = rel_diff(k_lg, p_lg)
+    log(f"{DS_ARCH} prefill + mtp_logits from its hidden state "
+        f"{mtp_ms:.2f} ms: kernels vs plain versions, max|diff|/max|logit| "
+        f"{err:.3e} (tolerance {LM_BF16_REL}); aux loss {k_aux.item():.6f} "
+        f"(plain {p_aux.item():.6f}), MTP aux {k_maux.item():.6f} (plain "
+        f"{p_maux.item():.6f}); launches {mcounts} (expected {want})")
+    if mcounts != want:
+        fail(f"{DS_ARCH} mtp: launches {mcounts} != expected {want}")
+    if not torch.isfinite(k_lg).all() or err > LM_BF16_REL \
+            or not (k_aux > 0 and k_maux > 0):
+        fail(f"{DS_ARCH} mtp: logits or aux losses wrong ({err:.3e})")
+    details["mtp"] = {"ms": mtp_ms, "rel_diff": err, "aux": k_aux.item(),
+                      "mtp_aux": k_maux.item()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] + mcounts[k] for k in counts}, details
+
+
+def cascade_phase(torch, np):
+    """``LMCascade`` over ``greedy_lm_step`` stages: smollm-135m at full
+    size, then yi-9b at full width and depth, bf16; CASCADE_BATCH prompts
+    of CASCADE_PROMPT tokens below the smaller vocabulary, CASCADE_NEW
+    new tokens; the threshold the median of stage 0's confidences, so
+    both stages serve. Counters zeroed just before ``run_batch`` and read
+    just after. Each output must be its stage's own output."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cascade import LMCascade, greedy_lm_step
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    cfgs = [get_config(a) for a in CASCADE_ARCHS]
+    t0 = time.perf_counter()
+    params = [init_params(c, seed=85 + i, device=DEV)
+              for i, c in enumerate(cfgs)]
+    torch.cuda.synchronize()
+    log(f"LM cascade {' -> '.join(CASCADE_ARCHS)}: random init "
+        f"{time.perf_counter() - t0:.2f} s")
+    steps = [greedy_lm_step(p, c, CASCADE_NEW, device=DEV)
+             for p, c in zip(params, cfgs)]
+    vocab = min(c.vocab_size for c in cfgs)
+    g = torch.Generator(device=DEV).manual_seed(86)
+    prompts = torch.randint(0, vocab, (CASCADE_BATCH, CASCADE_PROMPT),
+                            generator=g, device=DEV).cpu().numpy()
+    alone = [step(prompts) for step in steps]
+    conf0 = np.exp(alone[0][1]).mean(axis=-1)
+    thr = float(np.median(conf0))
+    casc = LMCascade(*steps)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = casc.run_batch(prompts, thr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    for c in cfgs:
+        for name, n in path_counts(c, 1, CASCADE_NEW - 1).items():
+            want[name] += n
+    stage_out = np.stack([alone[st][0][j]
+                          for j, st in enumerate(res.stage_index)])
+    own = np.array([np.array_equal(res.outputs[j], stage_out[j])
+                    for j in range(CASCADE_BATCH)])
+    n_heavy = int((res.stage_index == 1).sum())
+    log(f"LM cascade {' -> '.join(CASCADE_ARCHS)} b={CASCADE_BATCH} "
+        f"prompt {CASCADE_PROMPT} new {CASCADE_NEW}: threshold {thr:.4f} "
+        f"(median of stage-0 confidences "
+        f"{[float(f'{c:.5e}') for c in conf0]}); "
+        f"{n_heavy} of {CASCADE_BATCH} deferred to {CASCADE_ARCHS[1]}; "
+        f"run_batch {wall * 1e3:.2f} ms; each output its stage's own: "
+        f"{bool(own.all())}; launches {counts} (expected {want})")
+    if not own.all() or not 0 < n_heavy < CASCADE_BATCH:
+        fail(f"LM cascade: outputs {own.tolist()}, {n_heavy} deferred")
+    if not np.array_equal(res.confidences, conf0) or counts != want:
+        fail(f"LM cascade: confidences or launches differ ({counts} != "
+             f"{want})")
+    routes = check_routes(torch, "LM cascade", "bfloat16", 128, "wgmma",
+                          counts["flash_attention"])
+    del params, steps, casc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"threshold": thr, "confidences": conf0.tolist(),
+                    "stage_index": res.stage_index.tolist(),
+                    "run_batch_ms": wall * 1e3, "flash_routes": routes}
+
+
+def serve_cli_phase():
+    """``repro_torch.launch.serve.main`` in process (the simulator; no
+    kernel runs)."""
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        report = serve.main(SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    log(f"serving CLI {' '.join(SERVE_ARGV)} ({wall:.2f} s host): "
+        + json.dumps({k: v for k, v in report.items()
+                      if k != "threshold_timeline"}))
+    if report["completed"] + report["dropped"] + report["shed_admission"] \
+            != report["total_queries"] or not report["completed"]:
+        fail(f"serving CLI: the report does not conserve queries: {report}")
+    return report
+
+
+def lm_family_phase(torch, np):
+    """The rest of the LM family, one model after another, each freed
+    before the next. Returns the offset route's kernel-line entry, the
+    launches of the family's main-path runs, and the details."""
+    details = {}
+    counts, details[QWEN_ARCH] = qwen_phase(torch)
+    ds_counts, details[DS_ARCH] = deepseek_phase(torch)
+    c_counts, details["lm_cascade"] = cascade_phase(torch, np)
+    details["serve_cli"] = serve_cli_phase()
+    total = {k: counts[k] + ds_counts[k] + c_counts[k] for k in counts}
+    rows = details[QWEN_ARCH]["offset_route"]
+    per = {key: sum(r["per_path"] * (r[key] or 0.0) for r in rows)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    entry = {"source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+             "max_abs_err": max(r["max_abs_err"] for r in rows), **per,
+             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                        for r in rows) else "operations",
+             "launches": details[QWEN_ARCH]["chunked"]["offset_launches"],
+             "per": f"one {QWEN_ARCH} prompt ({LM_BATCH}x{LM_PROMPT}) in "
+                    f"chunks of {CHUNK}: {sum(r['per_path'] for r in rows)} "
+                    "launches with a query offset"}
+    return entry, total, details
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -2171,6 +2625,8 @@ def main(argv=None) -> int:
     for arch in REC_ARCHS:
         entry, rec_counts[arch], details[arch] = recurrent_phase(torch, arch)
         rec_entries.append(entry)
+    offset_entry, family_counts, details["lm_family"] = lm_family_phase(
+        torch, np)
     # flash attention's three routes: the diffusion path's float32 calls
     # on tf32x3, the LM paths' bf16 calls on wgmma; cuda_core (no path's
     # head dim) timed at the UNet's inputs as the float32 route's earlier
@@ -2178,7 +2634,11 @@ def main(argv=None) -> int:
     routes = {"diffusion": details["slice"]["flash_routes"],
               "live": details["live"]["flash_routes"],
               "lm": details["lm"]["slice"]["flash_routes"],
-              **{a: details[a]["slice"]["flash_routes"] for a in REC_ARCHS}}
+              **{a: details[a]["slice"]["flash_routes"] for a in REC_ARCHS},
+              "qwen": details["lm_family"][QWEN_ARCH]["slice"]["flash_routes"],
+              "chunked": details["lm_family"][QWEN_ARCH]["chunked"][
+                  "flash_routes"],
+              "cascade": details["lm_family"]["lm_cascade"]["flash_routes"]}
     lm_flash = lm_entries.pop("flash_attention")
     fa_entry["routes"] = {}
     for way, e in (("tf32x3", fa_entry), ("wgmma", lm_flash)):
@@ -2194,6 +2654,9 @@ def main(argv=None) -> int:
         "bound_ms": fa_entry["was_bound_ms"], "bound_by": "operations",
         "library_ms": fa_entry["library_ms"], "per": fa_entry["per"],
         "launches": sum(r["cuda_core"] for r in routes.values())}
+    # the wgmma route with a query offset (its launches are also among
+    # wgmma's)
+    fa_entry["routes"]["wgmma_offset"] = offset_entry
     for e in rec_entries:      # the recurrences' launches by route
         for way, r in e["routes"].items():
             r["launches"] = sum(
@@ -2206,7 +2669,8 @@ def main(argv=None) -> int:
                    "live": live_counts[e["name"]],
                    "lm": lm_counts[e["name"]],
                    "xlstm": rec_counts[REC_ARCHS[0]][e["name"]],
-                   "jamba": rec_counts[REC_ARCHS[1]][e["name"]]}
+                   "jamba": rec_counts[REC_ARCHS[1]][e["name"]],
+                   "lm_family": family_counts[e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         kernels.append({k: e[k] for k in (

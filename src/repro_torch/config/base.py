@@ -58,9 +58,9 @@ class XLSTMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A decoder-only LM. The port runs the "attn", "mamba", "mlstm" and
-    "slstm" mixers with "mlp", "moe" or no FFN; the "mla" mixer and
-    M-RoPE are listed in ROADMAP.md."""
+    """A decoder-only LM: the "attn", "mla", "mamba", "mlstm" and
+    "slstm" mixers with "mlp", "moe" or no FFN; token or embedding
+    inputs; RoPE, M-RoPE or learned positions."""
     name: str
     family: str                       # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int

@@ -4,8 +4,9 @@ Port of ``DiffusionCascade`` in ``repro/core/cascade.py``. A cascade is an
 ordered list of (config, params) UNet stages plus a discriminator.
 ``run_batch`` executes the real pipeline: stage-0 generation ->
 discriminator confidence -> threshold -> next-stage generation for the
-deferred queries, down the cascade. ``LMCascade`` comes with the LM
-slice.
+deferred queries, down the cascade. ``LMCascade`` (paper §5) is the same
+host logic over LM step callables; ``greedy_lm_step`` builds one from
+the port's serve steps.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ import torch
 from repro_torch.config.base import DiffusionConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import impls as kimpls
+from repro_torch.launch.steps import serve_decode, serve_prefill
 from repro_torch.models import diffusion as diff
+from repro_torch.models.kvcache import init_cache
 from repro_torch.models.efficientnet import (DiscriminatorConfig,
                                              apply_discriminator)
 
@@ -188,3 +191,83 @@ class DiffusionCascade:
                              light_outputs=light_outputs,
                              stage_index=stage_idx,
                              boundary_confidences=boundary_confs)
+
+
+class LMCascade:
+    """LM cascade (paper §5): an ordered list of same-family LM step
+    callables; confidence = mean top-token probability of each stage's
+    generation. A copy of the JAX package's ``LMCascade``: host logic
+    over the steps, which may run anywhere."""
+
+    def __init__(self, *steps: Callable):
+        """Each step(prompt_tokens) -> (tokens, logprobs) host callable,
+        cheapest first."""
+        if len(steps) == 1 and isinstance(steps[0], (list, tuple)):
+            steps = tuple(steps[0])
+        if len(steps) < 2:
+            raise ValueError("an LM cascade needs >= 2 stages")
+        self.steps: Tuple[Callable, ...] = tuple(steps)
+
+    @property
+    def light_step(self) -> Callable:
+        return self.steps[0]
+
+    @property
+    def heavy_step(self) -> Callable:
+        return self.steps[-1]
+
+    def run_batch(self, prompt_tokens,
+                  thresholds: Union[float, Sequence[float]]) -> CascadeResult:
+        n = len(self.steps)
+        ths = _normalize_thresholds(thresholds, n - 1)
+        tokens, logprobs = self.steps[0](prompt_tokens)
+        conf0 = np.exp(np.asarray(logprobs)).mean(axis=-1)
+        outputs = np.asarray(tokens)
+        light_outputs = np.asarray(tokens)
+        stage_idx = np.zeros(len(conf0), dtype=np.int64)
+        active = conf0 < ths[0]
+        for i in range(1, n):
+            if not bool(active.any()):
+                break
+            toks_i, logp_i = self.steps[i](prompt_tokens)
+            outputs = np.where(active[:, None], np.asarray(toks_i), outputs)
+            stage_idx = np.where(active, i, stage_idx)
+            if i < n - 1:
+                conf = np.exp(np.asarray(logp_i)).mean(axis=-1)
+                active = active & (conf < ths[i])
+            else:
+                active = np.zeros_like(active)
+        return CascadeResult(outputs=outputs, confidences=conf0,
+                             deferred=stage_idx > 0,
+                             light_outputs=light_outputs,
+                             stage_index=stage_idx)
+
+
+def greedy_lm_step(params, cfg, new_tokens: int,
+                   device: DeviceLike = None) -> Callable:
+    """An ``LMCascade`` step over the port's serve steps (the port's own:
+    the JAX package leaves the steps to the caller): ``step(prompts)``
+    takes (B, S) token ids, prefills a fresh cache on ``device`` (CUDA
+    unless the caller passes "cpu"; ``params`` live there), decodes
+    ``new_tokens`` tokens greedily and returns numpy (tokens (B, N),
+    log-probabilities of the chosen tokens (B, N), float32)."""
+    dev = resolve_device(device)
+
+    def step(prompt_tokens):
+        toks = torch.as_tensor(np.asarray(prompt_tokens)
+                               if not torch.is_tensor(prompt_tokens)
+                               else prompt_tokens).to(dev, torch.int64)
+        Bq, S = toks.shape
+        cache = init_cache(cfg, Bq, S + new_tokens, dev)
+        logits, cache = serve_prefill(params, cfg, cache, toks)
+        chosen, logps = [], []
+        for i in range(new_tokens):
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            nxt = lp.argmax(dim=-1, keepdim=True)
+            chosen.append(nxt)
+            logps.append(lp.gather(-1, nxt))
+            if i + 1 < new_tokens:
+                logits, cache = serve_decode(params, cfg, cache, nxt, S + i)
+        return (torch.cat(chosen, dim=1).cpu().numpy(),
+                torch.cat(logps, dim=1).cpu().numpy())
+    return step

@@ -9,7 +9,11 @@
 // 1/sqrt(D), the same-position causal mask (row >= col from position 0),
 // a kv_len bound that masks K/V rows at or past it, GQA (query head h
 // reads KV head h / G), online softmax in fp32 with an fp32 accumulator,
-// output acc / max(l, 1e-30) in bfloat16.
+// output acc / max(l, 1e-30) in bfloat16. A query offset q_off places
+// query row r at absolute position q_off + r against keys 0..kv_len-1
+// (a prompt chunk written into a KV cache at cache_index = q_off, with
+// kv_len = q_off + Sq); the causal mask is then col > q_off + row, and
+// q_off = 0 is the same-position mask of the TPU kernel.
 //
 // The one numerical difference from the TPU kernel: that kernel
 // multiplies P in fp32 by V widened to fp32; here P, computed in fp32,
@@ -243,7 +247,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ o, int B, int Sq, int H, int KH,
-                 int kv_len, int causal, float scale_log2) {
+                 int kv_len, int causal, int q_off, float scale_log2) {
   using C = Tc<D>;
   constexpr int HALVES = D / ATOM;
   extern __shared__ unsigned char smem_raw[];
@@ -262,12 +266,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x;
   const int n_qt = (Sq + BQ - 1) / BQ, n_items = B * H * n_qt;
   // work item i: the longest query tiles of a causal call come first
+  // (by q_off + q0, which for one call is the order of q0)
   auto item = [&](int i, int& b, int& h, int& q0, int& nk) {
     const int slot = i / (B * H), bh = i % (B * H);
     b = bh / H;
     h = bh % H;
     q0 = (causal ? n_qt - 1 - slot : slot) * BQ;
-    const int k_end = causal ? min(kv_len, q0 + BQ) : kv_len;
+    const int k_end = causal ? min(kv_len, q_off + q0 + BQ) : kv_len;
     nk = (k_end + BK - 1) / BK;
   };
 
@@ -331,7 +336,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     int b, h, q0, nk;
     item(i, b, h, q0, nk);
     const int qs = n & 1;
-    const int row_lo = q0 + r_in, row_hi = row_lo + 8;
+    // absolute positions of the thread's two rows, for the causal mask
+    const int row_lo = q_off + q0 + r_in, row_hi = row_lo + 8;
     float acc[D / 2];  // O: 64 x D in wgmma's accumulator layout
 #pragma unroll
     for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
@@ -375,7 +381,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     auto softmax = [&](int j, float (&alpha)[2]) {
       const int k0 = j * BK;
       const bool mask = k0 + BK > kv_len ||
-                        (causal && k0 + BK - 1 > q0 + wg * 64);
+                        (causal && k0 + BK - 1 > q_off + q0 + wg * 64);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int k = 0; k < BK / 8; ++k)
@@ -512,8 +518,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KH, int kv_len, int causal, float scale,
-           int sms, cudaStream_t stream) {
+           int Sq, int Sk, int H, int KH, int kv_len, int causal, int q_off,
+           float scale, int sms, cudaStream_t stream) {
   static unsigned int smem_set = 0;
   cudaError_t err = set_smem_once((const void*)flash_fwd_tc<D>, Tc<D>::SMEM,
                                   &smem_set);
@@ -527,7 +533,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int items = B * H * ((Sq + BQ - 1) / BQ);
   flash_fwd_tc<D><<<min(items, sms), THREADS, Tc<D>::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, Sq, H, KH, kv_len,
-      causal, scale * LOG2E);
+      causal, q_off, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -537,20 +543,22 @@ extern "C" {
 
 // bfloat16 q: (B, Sq, H, D); k, v: (B, Sk, KH, D); o: (B, Sq, H, D); all
 // contiguous, 16-byte aligned, on the device of `stream`; D 64 or 128.
-// `sms` is the device's SM count, the most blocks of the persistent grid.
+// `q_off` >= 0 is the absolute position of query row 0 (the causal mask
+// is col > q_off + row); `sms` is the device's SM count, the most blocks
+// of the persistent grid.
 // Returns 0, a cudaError_t, -1 for an unsupported D, or -2 if a tensor
 // map could not be encoded.
 int flash_attention_tc_forward(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KH,
                                int D, int kv_len, int causal, float scale,
-                               int sms, void* stream) {
+                               int q_off, int sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal, scale,
-                      sms, s);
+    return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal, q_off,
+                      scale, sms, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal, scale,
-                       sms, s);
+    return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal, q_off,
+                       scale, sms, s);
   return -1;
 }
 

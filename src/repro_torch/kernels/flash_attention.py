@@ -15,6 +15,14 @@ total (``flash_attention.launches``) and per route
 (``flash_attention.route_launches``). Its plain PyTorch version is
 ``kernels/ref.flash_attention_ref`` (``ops.PLAIN``).
 
+A query offset (``q_offset`` > 0) places query row r at absolute
+position ``q_offset + r`` against the keys: a prompt chunk written into
+a KV cache at ``cache_index = q_offset``, its K/V the cache's rows with
+``kv_len = q_offset + Sq``. Only ``wgmma`` takes it (the route every
+bf16 LM serves on); its launches are also counted apart
+(``flash_attention.offset_launches``). The float32 and CUDA-core kernels
+keep the same-position mask and raise at ``q_offset`` > 0.
+
 Bound on an H100 SXM at the UNet's shape (q (8,256,4,128), k/v
 (8,264,4,128), f32, non-causal): 1.11 GFLOP, taken at fp32 accuracy as
 3 x 1.11 GFLOP of TF32 at 495 TFLOP/s, 6.7 us (16.5 us at the 67 TFLOP/s
@@ -99,7 +107,7 @@ def _forward():
 def _forward_tc():
     global _FN_TC
     if _FN_TC is None:
-        _FN_TC = _bind("flash_attention_tc", [ctypes.c_int])
+        _FN_TC = _bind("flash_attention_tc", [ctypes.c_int, ctypes.c_int])
     return _FN_TC
 
 
@@ -111,12 +119,14 @@ def _forward_tf32():
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, kv_len: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Launch the kernel. q: (B,Sq,H,D); k, v: (B,Sk,KH,D) with H = KH*G,
     contiguous CUDA tensors of one dtype (float32 or bfloat16).
-    ``kv_len`` masks k/v rows at or past it (default Sk). Raises on
-    anything the kernel does not take; never falls back."""
+    ``kv_len`` masks k/v rows at or past it (default Sk); ``q_offset`` is
+    the absolute position of query row 0 for the causal mask (``wgmma``
+    only). Raises on anything the kernel does not take; never falls
+    back."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention kernel: {name} is not a CUDA "
@@ -145,6 +155,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < kv <= Sk:
         raise ValueError(f"kv_len={kv_len} outside (0, {Sk}]")
     way = route(q.dtype, D)
+    q_off = int(q_offset)
+    if q_off < 0:
+        raise ValueError(f"flash_attention kernel: q_offset={q_offset} < 0")
+    if q_off and way != "wgmma":
+        raise ValueError(
+            f"flash_attention kernel: q_offset={q_off} > 0 (a prompt chunk "
+            f"at cache_index > 0) is taken by the bf16 wgmma route only, at "
+            f"head dims {TC_HEAD_DIMS}; {q.dtype} at head dim {D} routes "
+            f"to {way}")
     if way != "cuda_core":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
@@ -159,7 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 B, Sq, Sk, H, KH, D, kv, int(causal), 1.0 / math.sqrt(D))
         if way == "wgmma":
             fn, errstr = _forward_tc()
-            err = fn(*args, sm_count(q.device), stream)
+            err = fn(*args, q_off, sm_count(q.device), stream)
         elif way == "tf32x3":
             fn, errstr = _forward_tf32()
             err = fn(*args, plan_key_groups(B, H, Sq, sm_count(q.device)),
@@ -172,8 +191,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            + errstr(err).decode())
     flash_attention.launches += 1
     flash_attention.route_launches[way] += 1
+    if q_off:
+        flash_attention.offset_launches += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+flash_attention.offset_launches = 0

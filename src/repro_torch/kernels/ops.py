@@ -74,14 +74,16 @@ def _refuse_grad(kernel: str, *tensors) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    kv_len: Optional[int] = None):
-    """q: (B,Sq,H,D); k, v: (B,Sk,KH,D). See ``ref.flash_attention_ref``."""
+                    kv_len: Optional[int] = None, q_offset: int = 0):
+    """q: (B,Sq,H,D); k, v: (B,Sk,KH,D); query row r at position
+    ``q_offset + r``. See ``ref.flash_attention_ref``."""
     if _device_type(q, "flash_attention") == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+        return ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                       q_offset=q_offset)
     _refuse_grad("flash_attention", q, k, v)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
-                                  kv_len=kv_len)
+                                  kv_len=kv_len, q_offset=q_offset)
 
 
 def fused_groupnorm(x, scale, bias, *, groups: int, act: bool = True,
@@ -152,6 +154,12 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def offset_launches() -> int:
+    """Flash attention's launches with a query offset (``q_offset`` > 0,
+    a prompt chunk at ``cache_index`` > 0), all on ``wgmma``."""
+    return _flash.flash_attention.offset_launches
+
+
 def route_counts(kernel: str = "flash_attention") -> Dict[str, int]:
     """Launches by route of a kernel with more than one (``ROUTED``):
     flash attention's (the default) at head dims 64 and 128 ``wgmma``
@@ -167,3 +175,4 @@ def reset_launch_counts() -> None:
     for fn in ROUTED.values():
         for way in fn.route_launches:
             fn.route_launches[way] = 0
+    _flash.flash_attention.offset_launches = 0

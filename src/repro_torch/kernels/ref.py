@@ -23,9 +23,10 @@ def group_count(groups: int, channels: int) -> int:
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        kv_len: Optional[int] = None):
-    """q: (B,Sq,H,D); k,v: (B,Sk,KH,D) with H = KH*G. fp32 softmax,
-    same-position causal mask; ``kv_len`` masks k/v rows at or past that
+                        kv_len: Optional[int] = None, q_offset: int = 0):
+    """q: (B,Sq,H,D); k,v: (B,Sk,KH,D) with H = KH*G. fp32 softmax; the
+    causal mask places query row r at position ``q_offset + r`` (0: the
+    same-position mask); ``kv_len`` masks k/v rows at or past that
     index. Output in q's dtype."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -33,7 +34,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     qg = q.reshape(B, Sq, KH, G, D).float()
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(D)
     if causal:
-        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        mask = torch.ones(Sq, Sk, dtype=torch.bool,
+                          device=q.device).tril(int(q_offset))
         s = s.masked_fill(~mask, float("-inf"))
     if kv_len is not None:
         valid = torch.arange(Sk, device=q.device) < kv_len

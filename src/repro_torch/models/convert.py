@@ -84,14 +84,18 @@ def to_jax(tree):
 
 
 def lm_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None):
-    """The JAX LM tree ``{"embed", "prefix", "scan": {"b<i>": stacked},
-    "final_norm", "lm_head"?}`` (numpy leaves) as the port's
-    ``{"embed", "layers": [...], "final_norm", "lm_head"?}`` on
+    """The JAX LM tree ``{"embed"?, "prefix", "scan": {"b<i>": stacked},
+    "final_norm", "lm_head"?, "mtp"?}`` (numpy leaves) as the port's
+    ``{"embed"?, "layers": [...], "final_norm", "lm_head"?, "mtp"?}`` on
     ``device`` (CUDA unless the caller passes "cpu"). Layer order is
-    ``cfg.flat_pattern()``: the prefix, then period by period."""
+    ``cfg.flat_pattern()``: the prefix, then period by period. The MLA
+    mixer's leaves, an embedding-input model's ``embed`` (learned
+    positions only, or none) and the multi-token prediction block are
+    copied as they are."""
     dev = resolve_device(device)
     if "scan" not in tree:
         raise ValueError("not a JAX LM parameter tree (no 'scan' key)")
+
     def leaf(a):
         return _tensor(a, dev)
     layers = [map_tree(leaf, p) for p in tree["prefix"]]
@@ -99,8 +103,10 @@ def lm_from_jax(tree, cfg: ModelConfig, device: DeviceLike = None):
         for i in range(len(cfg.period_pattern)):
             layers.append(map_tree(lambda a: _tensor(np.asarray(a)[j], dev),
                                    tree["scan"][f"b{i}"]))
-    out = {"embed": map_tree(leaf, tree["embed"]), "layers": layers,
-           "final_norm": map_tree(leaf, tree["final_norm"])}
+    out = {"layers": layers, "final_norm": map_tree(leaf, tree["final_norm"])}
+    for key in ("embed", "mtp"):
+        if key in tree:
+            out[key] = map_tree(leaf, tree[key])
     if "lm_head" in tree:
         out["lm_head"] = _tensor(tree["lm_head"], dev)
     return out

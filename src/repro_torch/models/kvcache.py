@@ -7,11 +7,13 @@ package's ``_entry_specs`` builds it:
     ``{"h": (B, E, N)}`` float32;
   * ``mlstm``: ``conv`` as above and ``C`` (B, H, dh, dh), ``n`` (B, H,
     dh), ``m`` (B, H) float32;
-  * ``slstm``: ``c``, ``n``, ``m``, ``h`` of (B, D) float32.
+  * ``slstm``: ``c``, ``n``, ``m``, ``h`` of (B, D) float32;
+  * ``mla``: the latent ``{"c_kv": (B, T_max, kv_lora_rank), "k_rope":
+    (B, T_max, qk_rope_head_dim)}`` in the cache dtype.
 
 Every entry starts at zero except the stabilisers ``m``, which start at
 -inf (the JAX package's ``fix_m``). The forward writes into the entries
-in place. MLA latent caches come with their model (ROADMAP.md).
+in place.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import mla as MLA
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 
@@ -44,8 +47,7 @@ def entry_specs(cfg: ModelConfig, spec, batch: int, max_len: int):
     if mixer == "slstm":
         return XL.slstm_state_specs(cfg, batch)
     if mixer == "mla":
-        raise NotImplementedError("no cache for the 'mla' mixer in the "
-                                  "port yet (ROADMAP.md)")
+        return MLA.mla_cache_specs(cfg, batch, max_len, dt)
     raise ValueError(f"unknown mixer {mixer!r}")
 
 

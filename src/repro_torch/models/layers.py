@@ -17,7 +17,7 @@ package's sharding constraints have no counterpart on one card.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,18 +89,34 @@ def norm_apply(params, x, kind: str, eps: float = 1e-5, residual=None):
 # ---------------------------------------------------------------------------
 # Rotary embeddings
 # ---------------------------------------------------------------------------
-def rope_angles(positions, rot_dim: int, theta: float):
-    """positions: (B, S) -> cos, sin of shape (B, S, rot_dim/2), float32.
-    The inverse frequencies are ``theta ** (arange(half) / half)`` in
-    float32, as the JAX package computes them; M-RoPE's (P, B, S)
-    positions are not ported (ROADMAP.md)."""
-    if positions.ndim != 2:
-        raise NotImplementedError("M-RoPE positions (P, B, S) are not "
-                                  "ported")
+def rope_angles(positions, rot_dim: int, theta: float,
+                sections: Tuple[int, ...] = ()):
+    """positions: (B, S), or (P, B, S) for M-RoPE -> cos, sin of shape
+    (B, S, rot_dim/2), float32. The inverse frequencies are ``theta **
+    (arange(half) / half)`` in float32, as the JAX package computes
+    them. M-RoPE splits the half into ``sections`` (one per position
+    axis, summing to the half; default: all to the first axis, as there):
+    section i's frequencies take axis i's positions."""
     half = rot_dim // 2
     inv_freq = 1.0 / (theta ** (torch.arange(
         half, dtype=torch.float32, device=positions.device) / half))
-    angles = positions[..., None].float() * inv_freq
+    if positions.ndim == 3:
+        if not sections:
+            sections = (half,) + (0,) * (positions.shape[0] - 1)
+        if sum(sections) != half or len(sections) > positions.shape[0]:
+            raise ValueError(f"M-RoPE sections {tuple(sections)} do not "
+                             f"split {half} frequencies over "
+                             f"{positions.shape[0]} position axes")
+        parts, start = [], 0
+        for i, sec in enumerate(sections):
+            if sec == 0:
+                continue
+            parts.append(positions[i][..., None].float()
+                         * inv_freq[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)
+    else:
+        angles = positions[..., None].float() * inv_freq
     return torch.cos(angles), torch.sin(angles)
 
 
@@ -119,11 +135,12 @@ def apply_rope(x, cos, sin):
 def gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
                   kv_valid_len=None):
     """Plain grouped-query attention over a cache. q: (B, S, H, D); k, v:
-    (B, T, KH, D), H = KH * G. ``q_positions`` (B, S) are the queries'
+    (B, T, KH, Dv), H = KH * G. ``q_positions`` (B, S) are the queries'
     absolute positions for the causal mask (default arange(S));
     ``kv_valid_len`` (B,) masks cache rows at or past it. fp32 softmax.
-    The port runs it only where no kernel covers the call: a prompt
-    chunk written at ``cache_index > 0`` on a CPU tensor."""
+    The port runs it where no kernel covers the call: MLA's prefill (its
+    query/key head dim differs from its value head dim), and a prompt
+    chunk written at a 0-d tensor ``cache_index`` on a CPU tensor."""
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -159,62 +176,106 @@ def attn_init(gen, cfg, device=None):
     }
 
 
-def _proj(x, w):
-    """x (B, S, D) @ w (D, N, hd) -> (B, S, N, hd)."""
+def proj_heads(x, w):
+    """x (..., D) @ w (D, N, hd) -> (..., N, hd)."""
     D, N, hd = w.shape
     return (x @ w.reshape(D, N * hd)).view(*x.shape[:-1], N, hd)
 
 
-def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0):
-    """GQA attention block. x: (B, S, D); positions: (B, S) int64, the
-    tokens' absolute positions ``cache_index + arange(S)``.
+def slots_for(seq: int, cache_index, device):
+    """(S,) int64 sequence slots ``cache_index + arange(S)``: the cache
+    rows a forward of S tokens writes, and the positions its causal mask
+    and decode lengths follow. A tensor ``cache_index`` stays on the
+    device (no host sync)."""
+    return torch.arange(seq, device=device) + cache_index
+
+
+def decode_valid_len(slots, batch: int):
+    """(B,) int32 live cache rows after writing the token at ``slots``
+    (S = 1): ``slot + 1`` for every sequence, on the device."""
+    return (slots + 1).to(torch.int32).expand(batch).contiguous()
+
+
+def rope_positions(cfg, positions):
+    """cos, sin of the rotary angles of ``positions`` for ``cfg``'s
+    rope: M-RoPE over the (P, B, S) axes, else plain RoPE over (B, S)
+    (the first axis of a (P, B, S) tensor)."""
+    if cfg.rope == "mrope":
+        return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                           cfg.mrope_sections)
+    pos = positions[0] if positions.ndim == 3 else positions
+    return rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
+               slots=None, valid_len=None):
+    """GQA attention block. x: (B, S, D); positions: (B, S), or (P, B, S)
+    with M-RoPE, the rotary positions. ``slots``: (S,), the sequence
+    slots ``cache_index + arange(S)`` (``slots_for``), and ``valid_len``:
+    (B,) int32, the live cache rows of a decode step (``slots[-1] + 1``);
+    each computed here when not given (a forward computes them once for
+    all its layers).
+
+    The causal mask and the cache follow the slots, the rows of the
+    sequence; the positions only turn the rotary angles. This is the
+    JAX package's attention wherever its query positions (the positions,
+    or M-RoPE's first axis) are the slots, as the default positions are;
+    it masks by those positions instead, which differs on an M-RoPE
+    prompt whose first axis is not the sequence (ROADMAP.md, Queue 3).
 
     ``cache``: ``{"k", "v"}`` of shape (B, T_max, KH, hd) or None. The
-    new K/V rows are written into it in place at the positions (the
+    new K/V rows are written into it in place at the slots (the
     counterpart of the JAX step's donated cache). Attention runs as:
       * no cache, or a cache filled from the int ``cache_index`` 0:
         the flash kernel, causal over the S fresh K/V rows (what the JAX
         package computes over the padded cache with ``kv_valid_len =
         S``);
       * S = 1 against a cache: the decode kernel over the cache with
-        ``valid_len = position + 1``, a device tensor (no host sync);
-      * S > 1 at any other ``cache_index`` (a chunked prefill, which
-        the served path never takes; a tensor index is not read on the
-        host): the plain ``gqa_attention`` on a CPU tensor; on CUDA no
-        kernel covers it and it raises.
+        ``valid_len = slot + 1``, a device tensor (no host sync);
+      * S > 1 at an int ``cache_index`` > 0 (a prompt chunk): the flash
+        kernel over the cache's rows with query offset ``cache_index``
+        and ``kv_len = cache_index + S`` (on CUDA the bf16 ``wgmma``
+        route; the float32 routes raise);
+      * S > 1 at a 0-d tensor ``cache_index`` (not read on the host):
+        the plain ``gqa_attention`` on a CPU tensor; on CUDA no kernel
+        covers it and it raises.
     Returns (out, cache)."""
     B, S, _ = x.shape
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported")
+    q = proj_heads(x, params["wq"])
+    k = proj_heads(x, params["wk"])
+    v = proj_heads(x, params["wv"])
     if cfg.rope != "none":
-        cos, sin = rope_angles(positions, cfg.resolved_head_dim,
-                               cfg.rope_theta)
+        cos, sin = rope_positions(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    fresh = isinstance(cache_index, int) and cache_index == 0
     if cache is None:
         out = ops.flash_attention(q, k, v, causal=True)
     else:
+        if slots is None:
+            slots = slots_for(S, cache_index, x.device)
         ck, cv = cache["k"], cache["v"]
-        rows = positions[0]
-        ck.index_copy_(1, rows, k.to(ck.dtype))
-        cv.index_copy_(1, rows, v.to(cv.dtype))
+        ck.index_copy_(1, slots, k.to(ck.dtype))
+        cv.index_copy_(1, slots, v.to(cv.dtype))
         if S == 1:
-            valid = (positions[:, 0] + 1).to(torch.int32)
-            out = ops.decode_attention(q[:, 0], ck, cv, valid)[:, None]
-        elif fresh:
-            out = ops.flash_attention(q, k, v, causal=True)
+            if valid_len is None:
+                valid_len = decode_valid_len(slots, B)
+            out = ops.decode_attention(q[:, 0], ck, cv, valid_len)[:, None]
+        elif isinstance(cache_index, int):
+            if cache_index == 0:
+                out = ops.flash_attention(q, k, v, causal=True)
+            else:
+                out = ops.flash_attention(q, ck, cv, causal=True,
+                                          kv_len=cache_index + S,
+                                          q_offset=cache_index)
         elif x.is_cuda:
             raise NotImplementedError(
-                "a prompt chunk of S > 1 at cache_index > 0 has no kernel "
-                "on CUDA (ROADMAP.md)")
+                "a prompt chunk of S > 1 at a tensor cache_index has no "
+                "kernel on CUDA: pass the index as an int (ROADMAP.md)")
         else:
-            out = gqa_attention(q, ck, cv, causal=True, q_positions=positions,
-                                kv_valid_len=positions[:, -1] + 1)
+            out = gqa_attention(q, ck, cv, causal=True,
+                                q_positions=slots.expand(B, S),
+                                kv_valid_len=(slots[-1] + 1).expand(B))
     wo = params["wo"]
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return y, cache
@@ -335,5 +396,6 @@ def embed_init(gen, cfg, device=None):
 def embed_apply(params, cfg, tokens, positions=None):
     x = params["embedding"][tokens]
     if cfg.pos_emb == "learned" and positions is not None:
-        x = x + params["pos_embedding"][positions]
+        pos = positions if positions.ndim == 2 else positions[0]
+        x = x + params["pos_embedding"][pos]
     return x

@@ -1,24 +1,34 @@
 """Decoder-only LM (port of ``repro/models/transformer.py``).
 
-Each block is (mixer, ffn) with mixer in {attn, mamba, mlstm, slstm} and
-ffn in {mlp, moe, None}; the "mla" mixer is not ported yet (ROADMAP.md).
-Parameters: ``{"embed": {"embedding"}, "layers": [block, ...],
-"final_norm", "lm_head"}`` with one block per layer of
-``cfg.flat_pattern()``; the JAX package's scan over stacked periods is a
-Python loop over this list. ``forward`` runs in three modes, as there:
+Each block is (mixer, ffn) with mixer in {attn, mla, mamba, mlstm,
+slstm} and ffn in {mlp, moe, None}. Parameters: ``{"embed"?, "layers":
+[block, ...], "final_norm", "lm_head"?, "mtp"?}`` with one block per
+layer of ``cfg.flat_pattern()``; the JAX package's scan over stacked
+periods is a Python loop over this list. A model takes int tokens
+(B, S) or, with ``input_mode="embeddings"``, float embeddings (B, S, D)
+(an embedding-input model has no embedding table; its ``embed`` holds
+only learned positions, where it has them). ``forward`` runs in three
+modes, as there:
 
   * ``train``   — the full sequence, no cache;
-  * ``prefill`` — the full sequence, written into the cache from 0;
+  * ``prefill`` — the sequence written into the cache at
+    ``cache_index`` (0 for a whole prompt, > 0 for a later chunk);
   * ``decode``  — S new tokens (1 when served) at ``cache_index``.
+
+It returns ``(logits, cache, aux[, hidden])``: aux the summed MoE
+load-balance losses, hidden the last block's output before the final
+norm (the multi-token prediction head's input, ``mtp_logits``).
 
 Kernels per forward (``kernels/ops.py``): with RMSNorm, one launch a
 layer for ``ln1``, one for ``ln2`` fused with the mixer's residual add
-(blocks with an FFN), and one for the final norm; SwiGLU once per MLP or
-MoE layer; attention once per attention layer (flash in train/prefill,
-decode attention at S = 1); ``mamba_scan`` once per Mamba layer and
-``mlstm_chunk`` once per mLSTM layer. LayerNorm (xLSTM) and the sLSTM
-are plain PyTorch. Remat and the multi-token prediction head (training
-only) are not ported.
+(blocks with an FFN), one for the final norm, and MLA's latent norm and
+(with a query rank) query norm; SwiGLU once per SwiGLU MLP, and once for
+an MoE layer's experts plus once for its shared expert; attention once
+per attention layer (flash in train/prefill, decode attention at S = 1,
+flash with a query offset for a prompt chunk at ``cache_index`` > 0);
+``mamba_scan`` once per Mamba layer and ``mlstm_chunk`` once per mLSTM
+layer. LayerNorm, GELU, the sLSTM and MLA's attention are plain
+PyTorch. Remat has no counterpart.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 
@@ -42,11 +53,7 @@ _MIXERS = {"mamba": (SSM.mamba_init, SSM.mamba_apply),
 
 def _check_spec(spec) -> None:
     mixer, ffn = spec
-    if mixer == "mla":
-        raise NotImplementedError(
-            f"block {spec!r}: the 'mla' mixer is not ported yet "
-            "(ROADMAP.md)")
-    if mixer != "attn" and mixer not in _MIXERS:
+    if mixer not in ("attn", "mla") and mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn not in ("mlp", "moe", None):
         raise ValueError(f"unknown ffn {ffn!r}")
@@ -58,6 +65,8 @@ def block_init(gen, cfg: ModelConfig, spec, device=None) -> Dict[str, Any]:
     p: Dict[str, Any] = {"ln1": L.norm_init(cfg.norm, cfg.d_model, device)}
     if mixer == "attn":
         p["attn"] = L.attn_init(gen, cfg, device)
+    elif mixer == "mla":
+        p["attn"] = MLA.mla_init(gen, cfg, device)
     else:
         p["mixer"] = _MIXERS[mixer][0](gen, cfg, device)
     if ffn is not None:
@@ -68,27 +77,41 @@ def block_init(gen, cfg: ModelConfig, spec, device=None) -> Dict[str, Any]:
 
 
 def block_apply(params, cfg: ModelConfig, spec, x, *, positions,
-                cache_entry, cache_index):
-    """Returns (x, cache_entry); the entry, when given, is written in
-    place. The residual add after the mixer is fused into the ``ln2``
-    norm: ``(h, x) = norm(y, residual=x)``."""
+                cache_entry, cache_index, mode: str = "train", slots=None,
+                valid_len=None):
+    """Returns (x, cache_entry, aux); the entry, when given, is written in
+    place, and aux is the MoE layer's load-balance loss (0.0 for other
+    blocks). The MLA mixer runs its absorbed decode in ``decode`` mode
+    and its prefill otherwise, as the JAX package dispatches. The
+    residual add after the mixer is fused into the ``ln2`` norm:
+    ``(h, x) = norm(y, residual=x)``."""
     mixer, ffn = spec
     h = L.norm_apply(params["ln1"], x, cfg.norm, cfg.norm_eps)
     if mixer == "attn":
         y, entry = L.attn_apply(params["attn"], cfg, h, positions=positions,
-                                cache=cache_entry, cache_index=cache_index)
+                                cache=cache_entry, cache_index=cache_index,
+                                slots=slots, valid_len=valid_len)
+    elif mixer == "mla":
+        if mode == "decode":
+            y, entry = MLA.mla_decode(params["attn"], cfg, h, positions,
+                                      cache_entry, cache_index)
+        else:
+            y, entry = MLA.mla_prefill(params["attn"], cfg, h, positions,
+                                       cache=cache_entry,
+                                       cache_index=cache_index)
     else:
         y, entry = _MIXERS[mixer][1](params["mixer"], cfg, h,
                                      state=cache_entry)
     if ffn is None:
-        return x + y, entry
+        return x + y, entry, 0.0
     h, x = L.norm_apply(params["ln2"], y, cfg.norm, cfg.norm_eps,
                         residual=x)
+    aux = 0.0
     if ffn == "moe":
-        y, _ = L.moe_apply(params["ffn"], cfg, h)
+        y, aux = L.moe_apply(params["ffn"], cfg, h)
     else:
         y = L.mlp_apply(params["ffn"], cfg, h)
-    return x + y, entry
+    return x + y, entry, aux
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -96,57 +119,123 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random parameters (the JAX package's structure and distributions)
     from a seeded ``torch.Generator`` on ``device`` (CUDA unless the
     caller passes "cpu")."""
-    if cfg.input_mode != "tokens" or cfg.mtp_depth:
-        raise NotImplementedError("the port's LM takes tokens and has no "
-                                  "multi-token prediction head")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    p: Dict[str, Any] = {
-        "embed": L.embed_init(gen, cfg, dev),
-        "layers": [block_init(gen, cfg, spec, dev)
-                   for spec in cfg.flat_pattern()],
-        "final_norm": L.norm_init(cfg.norm, cfg.d_model, dev),
-    }
-    if not cfg.tie_embeddings:
+    dt = L.torch_dtype(cfg.dtype)
+    p: Dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        p["embed"] = L.embed_init(gen, cfg, dev)
+    elif cfg.pos_emb == "learned":
+        p["embed"] = {"pos_embedding": L.dense_init(
+            gen, (cfg.max_position, cfg.d_model), scale=0.02, dtype=dt,
+            device=dev)}
+    p["layers"] = [block_init(gen, cfg, spec, dev)
+                   for spec in cfg.flat_pattern()]
+    p["final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dev)
+    if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
         p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                    scale=cfg.d_model ** -0.5,
-                                    dtype=L.torch_dtype(cfg.dtype),
+                                    scale=cfg.d_model ** -0.5, dtype=dt,
                                     device=dev)
+    if cfg.mtp_depth:
+        p["mtp"] = {
+            "proj": L.dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                 dtype=dt, device=dev),
+            "norm_h": L.norm_init(cfg.norm, cfg.d_model, dev),
+            "norm_e": L.norm_init(cfg.norm, cfg.d_model, dev),
+            "block": block_init(gen, cfg, cfg.period_pattern[-1], dev),
+        }
     return p
 
 
-def _default_positions(batch: int, seq: int, cache_index, device):
-    """(B, S) int64 positions ``cache_index + arange(S)``; a tensor
-    ``cache_index`` stays on the device (no host sync)."""
-    pos = torch.arange(seq, device=device) + cache_index
-    return pos[None, :].expand(batch, seq)
+def default_positions(cfg: ModelConfig, batch: int, slots):
+    """The positions of tokens at sequence slots ``slots`` (S,): (B, S)
+    int64, broadcast to (P, B, S) for M-RoPE (every axis the slot)."""
+    pos = slots[None, :].expand(batch, slots.shape[0])
+    if cfg.rope == "mrope":
+        pos = pos[None].expand(cfg.num_position_dims, *pos.shape)
+    return pos
 
 
-def forward(params, cfg: ModelConfig, tokens, *, cache=None, cache_index=0,
-            mode: str = "train"):
-    """tokens: (B, S) int. ``cache``: the list of ``init_cache``, needed
-    in ``prefill`` and ``decode`` and written in place; ``cache_index``:
-    the position of the first token, an int or a 0-d device tensor.
-    Returns (logits (B, S, V), cache)."""
+def _aux(aux, device) -> torch.Tensor:
+    if torch.is_tensor(aux):
+        return aux
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def _logits(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
+        return x @ params["embed"]["embedding"].T
+    return x @ params["lm_head"]
+
+
+def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
+            cache_index=0, mode: str = "train", return_hidden: bool = False):
+    """inputs: int tokens (B, S) or float embeddings (B, S, D).
+    ``positions``: (B, S), or (P, B, S) with M-RoPE (default: the slots
+    ``cache_index + arange(S)`` on every axis). ``cache``: the list of
+    ``init_cache``, needed in ``prefill`` and ``decode`` and written in
+    place; ``cache_index``: the position of the first token, an int or a
+    0-d device tensor. Returns (logits (B, S, V), cache, aux[, hidden])."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     if (cache is None) != (mode == "train"):
         raise ValueError(f"mode {mode!r} with cache={cache is not None}: "
                          "train takes no cache, prefill and decode need one")
-    B, S = tokens.shape
-    positions = _default_positions(B, S, cache_index, tokens.device)
-    x = L.embed_apply(params["embed"], cfg, tokens, positions)
+    embeds = inputs.is_floating_point()
+    B, S = inputs.shape[:2]
+    slots = L.slots_for(S, cache_index, inputs.device)
+    if positions is None:
+        positions = default_positions(cfg, B, slots)
+    if not embeds:
+        x = L.embed_apply(params["embed"], cfg, inputs, positions)
+    else:
+        x = inputs.to(L.torch_dtype(cfg.dtype))
+        if cfg.pos_emb == "learned":
+            pos = positions if positions.ndim == 2 else positions[0]
+            x = x + params["embed"]["pos_embedding"][pos]
+    valid_len = None
+    if cache is not None and S == 1:
+        valid_len = L.decode_valid_len(slots, B)
+    aux = 0.0
     for i, (spec, lp) in enumerate(zip(cfg.flat_pattern(),
                                        params["layers"])):
-        x, _ = block_apply(lp, cfg, spec, x, positions=positions,
-                           cache_entry=None if cache is None else cache[i],
-                           cache_index=cache_index)
+        x, _, a = block_apply(lp, cfg, spec, x, positions=positions,
+                              cache_entry=None if cache is None else cache[i],
+                              cache_index=cache_index, mode=mode, slots=slots,
+                              valid_len=valid_len)
+        aux = aux + a
+    hidden = x
     x = L.norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    out = (_logits(params, cfg, x), cache, _aux(aux, x.device))
+    return out + (hidden,) if return_hidden else out
+
+
+def mtp_logits(params, cfg: ModelConfig, hidden, next_tokens,
+               positions=None):
+    """DeepSeek-V3's multi-token prediction head (depth 1): predicts
+    token i+2 from hidden_i (``forward(..., return_hidden=True)``) and
+    the embedding of token i+1 (``next_tokens`` (B, S)), through one
+    more block of the period's last kind. Returns (logits, aux)."""
+    mp = params["mtp"]
+    B, S, _ = hidden.shape
+    if positions is None:
+        positions = default_positions(cfg, B,
+                                      L.slots_for(S, 0, hidden.device))
+    emb = params["embed"]["embedding"][next_tokens]
+    h = torch.cat([L.norm_apply(mp["norm_h"], hidden, cfg.norm,
+                                cfg.norm_eps),
+                   L.norm_apply(mp["norm_e"], emb, cfg.norm, cfg.norm_eps)],
+                  dim=-1)
+    h = h @ mp["proj"]
+    h, _, aux = block_apply(mp["block"], cfg, cfg.period_pattern[-1], h,
+                            positions=positions, cache_entry=None,
+                            cache_index=0, mode="train")
+    h = L.norm_apply(params["final_norm"], h, cfg.norm, cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["embedding"].T
+        lg = h @ params["embed"]["embedding"].T
     else:
-        logits = x @ params["lm_head"]
-    return logits, cache
+        lg = h @ params["lm_head"]
+    return lg, _aux(aux, h.device)
 
 
 def _norm_size(kind: str, dim: int) -> int:
@@ -158,6 +247,16 @@ def _mixer_size(cfg: ModelConfig, mixer: str) -> int:
     if mixer == "attn":
         H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         return 2 * D * H * hd + 2 * D * KH * hd
+    if mixer == "mla":
+        m, H = cfg.mla, cfg.num_heads
+        dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                         m.v_head_dim, m.kv_lora_rank)
+        # w_dkv, kv_norm, w_uk, w_uv, w_kr, wo; then the query path
+        n = D * r + r + r * H * dn + r * H * dv + D * dr + H * dv * D
+        if m.q_lora_rank:
+            rq = m.q_lora_rank
+            return n + D * rq + rq + rq * H * (dn + dr)
+        return n + D * H * (dn + dr)
     if mixer == "mamba":
         E, N, R = SSM._dims(cfg)
         W = cfg.ssm.d_conv
@@ -177,31 +276,52 @@ def _mixer_size(cfg: ModelConfig, mixer: str) -> int:
     return D * 4 * D + cfg.num_heads * dh * 4 * dh + 4 * D + 2 * D * up
 
 
-def _ffn_size(cfg: ModelConfig, ffn: str) -> int:
+def _ffn_size(cfg: ModelConfig, ffn: str, active_only: bool) -> int:
+    """Parameters of one FFN; ``active_only`` counts the routed experts'
+    weights at top_k of num_experts (the JAX package's rule)."""
     D = cfg.d_model
     mats = 3 if cfg.mlp == "swiglu" else 2
     if ffn == "mlp":
         return mats * D * cfg.d_ff
     m = cfg.moe
     Fd = m.d_ff or cfg.d_ff
-    n = D * m.num_experts + 3 * m.num_experts * D * Fd
+    experts = m.num_experts * D * Fd
+    if active_only:
+        experts = experts * m.top_k // max(m.num_experts, 1)
+    n = D * m.num_experts + 3 * experts
     if m.num_shared_experts:
         n += mats * D * Fd * m.num_shared_experts
     return n
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Parameters of ``init_params(cfg)``, from the config alone."""
+def _block_size(cfg: ModelConfig, spec, active_only: bool) -> int:
+    _check_spec(spec)
+    mixer, ffn = spec
+    n = _norm_size(cfg.norm, cfg.d_model) + _mixer_size(cfg, mixer)
+    if ffn is not None:
+        n += _norm_size(cfg.norm, cfg.d_model) + _ffn_size(cfg, ffn,
+                                                           active_only)
+    return n
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False,
+                 include_embedding: bool = True) -> int:
+    """Parameters of ``init_params(cfg)``, from the config alone (the
+    JAX package's ``count_params``): ``active_only`` counts the routed
+    experts at top_k of num_experts; ``include_embedding=False`` leaves
+    out the embedding table and learned positions."""
     D, V = cfg.d_model, cfg.vocab_size
-    n = V * D + _norm_size(cfg.norm, D)
-    if cfg.pos_emb == "learned":
-        n += cfg.max_position * D
-    if not cfg.tie_embeddings:
+    n = _norm_size(cfg.norm, D)
+    if include_embedding:
+        if cfg.input_mode == "tokens":
+            n += V * D
+        if cfg.pos_emb == "learned":
+            n += cfg.max_position * D
+    if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
         n += D * V
     for spec in cfg.flat_pattern():
-        _check_spec(spec)
-        mixer, ffn = spec
-        n += _norm_size(cfg.norm, D) + _mixer_size(cfg, mixer)
-        if ffn is not None:
-            n += _norm_size(cfg.norm, D) + _ffn_size(cfg, ffn)
+        n += _block_size(cfg, spec, active_only)
+    if cfg.mtp_depth:
+        n += 2 * D * D + 2 * _norm_size(cfg.norm, D) \
+            + _block_size(cfg, cfg.period_pattern[-1], active_only)
     return n

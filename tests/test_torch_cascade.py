@@ -256,8 +256,11 @@ def test_every_port_module_imports_without_jax():
 def test_port_and_smoke_script_import_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
         + [REPO / "chip_smoke.py"] \
-        + sorted((REPO / "examples").glob("*_torch.py"))
+        + sorted((REPO / "examples").glob("*_torch.py")) \
+        + sorted((REPO / "scripts").glob("*_torch.py"))
     assert {"serve_cascade_torch.py", "train_discriminator_torch.py",
+            "quickstart_torch.py", "trace_replay_torch.py",
+            "smoke_models_torch.py", "serve.py", "mla.py",
             "chip_smoke.py"} <= {f.name for f in files}
     bad = []
     for f in files:

@@ -486,9 +486,9 @@ def test_lm_kernel_path_matches_plain_path(cuda, monkeypatch):
 
     def run():
         cache = init_cache(cfg, 3, 64, cuda)
-        lp, cache = forward(p, cfg, toks[:, :19], cache=cache,
+        lp, cache, _ = forward(p, cfg, toks[:, :19], cache=cache,
                             mode="prefill")
-        ld, _ = forward(p, cfg, toks[:, 19:], cache=cache, cache_index=19,
+        ld, _, _ = forward(p, cfg, toks[:, 19:], cache=cache, cache_index=19,
                         mode="decode")
         return lp, ld
     ops.reset_launch_counts()
@@ -505,12 +505,77 @@ def test_lm_kernel_path_matches_plain_path(cuda, monkeypatch):
 
 
 def test_chunked_prefill_has_no_kernel_on_cuda(cuda):
+    """A float32 prompt chunk at cache_index > 0 has no kernel: the
+    float32 flash route keeps the same-position mask and refuses the
+    query offset; so does a chunk at a tensor cache_index. (bf16 chunks
+    take the wgmma route's offset:
+    ``test_chunked_prefill_takes_the_offset_route``.)"""
     cfg, p = _lm(cuda)
     cache = init_cache(cfg, 1, 32, cuda)
     toks = torch.zeros(1, 4, dtype=torch.long, device=cuda)
     forward(p, cfg, toks, cache=cache, mode="prefill")
-    with pytest.raises(NotImplementedError, match="cache_index > 0"):
+    with pytest.raises(ValueError, match="cache_index > 0"):
         forward(p, cfg, toks, cache=cache, cache_index=4, mode="decode")
+    with pytest.raises(NotImplementedError, match="tensor cache_index"):
+        forward(p, cfg, toks, cache=cache,
+                cache_index=torch.tensor(4, device=cuda), mode="decode")
+
+
+@pytest.mark.parametrize("B,Sq,T,H,KH,D,q_off", [
+    (4, 128, 512, 28, 4, 128, 384),   # qwen2-vl's last chunk, G = 7
+    (4, 128, 512, 28, 4, 128, 128),   # its second chunk
+    (2, 200, 640, 8, 2, 64, 333),     # ragged Sq, D 64
+    (1, 1, 64, 8, 8, 128, 17),        # one query row
+    (3, 130, 300, 9, 3, 64, 170),     # smollm's G = 3, two query tiles
+])
+def test_flash_wgmma_offset_route_matches_plain(cuda, B, Sq, T, H, KH, D,
+                                                q_off):
+    """The wgmma route with a query offset: query row r at q_off + r
+    against a cache of T rows, kv_len = q_off + Sq, against the plain
+    version; its launches count on wgmma and as offset launches."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q = _randn(g, (B, Sq, H, D), cuda, torch.bfloat16)
+    k = _randn(g, (B, T, KH, D), cuda, torch.bfloat16)
+    v = _randn(g, (B, T, KH, D), cuda, torch.bfloat16)
+    before = dict(tflash.flash_attention.route_launches)
+    off = tflash.flash_attention.offset_launches
+    got = tflash.flash_attention(q, k, v, causal=True, kv_len=q_off + Sq,
+                                 q_offset=q_off)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.route_launches == {
+        **before, "wgmma": before["wgmma"] + 1}
+    assert tflash.flash_attention.offset_launches == off + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, kv_len=q_off + Sq,
+                                   q_offset=q_off)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **FA_TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="wgmma route only"):
+        tflash.flash_attention(q.float(), k.float(), v.float(),
+                               kv_len=q_off + Sq, q_offset=q_off)
+
+
+def test_chunked_prefill_takes_the_offset_route(cuda):
+    """A bf16 LM (head dim 128, G = 4): a prompt prefilled in 4 chunks
+    gives the one-shot prefill's logits, the later chunks on the wgmma
+    route's offset."""
+    cfg, p = _lm(cuda, dtype="bfloat16")
+    g = torch.Generator(device=cuda).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=g,
+                         device=cuda)
+    one = init_cache(cfg, 2, 256, cuda)
+    full, _, _ = forward(p, cfg, toks, cache=one, mode="prefill")
+    cache = init_cache(cfg, 2, 256, cuda)
+    ops.reset_launch_counts()
+    for start in range(0, 256, 64):
+        got, _, _ = forward(p, cfg, toks[:, start:start + 64], cache=cache,
+                            cache_index=start, mode="prefill")
+    assert ops.offset_launches() == 3 * cfg.num_layers
+    assert ops.route_counts()["wgmma"] == 4 * cfg.num_layers
+    torch.testing.assert_close(got[:, -1].float(), full[:, -1].float(),
+                               atol=5e-2, rtol=5e-2)
+    # the same rows of K; each chunk's projection is its own matmul
+    torch.testing.assert_close(cache[0]["k"], one[0]["k"],
+                               **FA_TOL[torch.bfloat16])
 
 
 # ---------------------------------------------------------------------------
@@ -725,9 +790,9 @@ def test_recurrent_lm_kernel_path_matches_plain_path(cuda, monkeypatch,
 
     def run():
         cache = init_cache(cfg, 2, 32, cuda)
-        lp, cache = forward(p, cfg, toks[:, :19], cache=cache,
+        lp, cache, _ = forward(p, cfg, toks[:, :19], cache=cache,
                             mode="prefill")
-        ld, _ = forward(p, cfg, toks[:, 19:], cache=cache, cache_index=19,
+        ld, _, _ = forward(p, cfg, toks[:, 19:], cache=cache, cache_index=19,
                         mode="decode")
         return lp, ld
     ops.reset_launch_counts()

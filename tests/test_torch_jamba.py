@@ -228,7 +228,7 @@ def test_jamba_forward_matches_jax(mode):
     toks = _tokens(1, tcfg.vocab_size)
     if mode == "train":
         want, _, _ = jax_forward(jp, jcfg, jnp.asarray(toks), mode="train")
-        got, cache = forward(tp, tcfg, _t(toks), mode="train")
+        got, cache, _ = forward(tp, tcfg, _t(toks), mode="train")
         assert cache is None
     else:
         jc = jkv.init_cache(jcfg, B, S + 4)
@@ -236,12 +236,12 @@ def test_jamba_forward_matches_jax(mode):
         n = S if mode == "prefill" else S - 1
         want, jc, _ = jax_forward(jp, jcfg, jnp.asarray(toks[:, :n]),
                                   cache=jc, cache_index=0, mode="prefill")
-        got, tc = forward(tp, tcfg, _t(toks[:, :n]), cache=tc,
+        got, tc, _ = forward(tp, tcfg, _t(toks[:, :n]), cache=tc,
                           cache_index=0, mode="prefill")
         if mode == "decode":
             want, jc, _ = jax_forward(jp, jcfg, jnp.asarray(toks[:, n:]),
                                       cache=jc, cache_index=n, mode="decode")
-            got, tc = forward(tp, tcfg, _t(toks[:, n:]), cache=tc,
+            got, tc, _ = forward(tp, tcfg, _t(toks[:, n:]), cache=tc,
                               cache_index=n, mode="decode")
         per = len(jcfg.period_pattern)
         for i, entry in enumerate(tc):
@@ -258,10 +258,10 @@ def test_jamba_forward_matches_jax(mode):
 def test_jamba_decode_matches_teacher_forcing():
     _, tcfg, _, tp = _pair()
     toks = _t(_tokens(2, tcfg.vocab_size))
-    full, _ = forward(tp, tcfg, toks, mode="train")
+    full, _, _ = forward(tp, tcfg, toks, mode="train")
     cache = init_cache(tcfg, B, S + 2, "cpu")
-    _, cache = forward(tp, tcfg, toks[:, :S - 1], cache=cache, mode="prefill")
-    last, _ = forward(tp, tcfg, toks[:, S - 1:], cache=cache,
+    _, cache, _ = forward(tp, tcfg, toks[:, :S - 1], cache=cache, mode="prefill")
+    last, _, _ = forward(tp, tcfg, toks[:, S - 1:], cache=cache,
                       cache_index=S - 1, mode="decode")
     torch.testing.assert_close(last[:, 0], full[:, -1], **TF_TOL)
 

@@ -66,7 +66,7 @@ def test_lm_forward_matches_jax(variant, mode):
     toks = _tokens(1, tcfg.vocab_size)
     if mode == "train":
         want, _, _ = jax_forward(jp, jcfg, jnp.asarray(toks), mode="train")
-        got, cache = forward(tp, tcfg, _t(toks), mode="train")
+        got, cache, _ = forward(tp, tcfg, _t(toks), mode="train")
         assert cache is None
     else:
         jc = jkv.init_cache(jcfg, B, S + 4)
@@ -74,12 +74,12 @@ def test_lm_forward_matches_jax(variant, mode):
         n = S if mode == "prefill" else S - 1
         want, jc, _ = jax_forward(jp, jcfg, jnp.asarray(toks[:, :n]),
                                   cache=jc, cache_index=0, mode="prefill")
-        got, tc = forward(tp, tcfg, _t(toks[:, :n]), cache=tc,
+        got, tc, _ = forward(tp, tcfg, _t(toks[:, :n]), cache=tc,
                           cache_index=0, mode="prefill")
         if mode == "decode":
             want, jc, _ = jax_forward(jp, jcfg, jnp.asarray(toks[:, n:]),
                                       cache=jc, cache_index=n, mode="decode")
-            got, tc = forward(tp, tcfg, _t(toks[:, n:]), cache=tc,
+            got, tc, _ = forward(tp, tcfg, _t(toks[:, n:]), cache=tc,
                               cache_index=n, mode="decode")
         jk = np.asarray(jc["scan"]["b0"]["k"])            # (L, B, T, KH, hd)
         np.testing.assert_allclose(
@@ -94,30 +94,30 @@ def test_decode_matches_teacher_forcing(variant):
     forward's last logits (``tests/test_arch_smoke.py``'s invariant)."""
     _, tcfg, _, tp = _pair(variant)
     toks = _t(_tokens(2, tcfg.vocab_size))
-    full, _ = forward(tp, tcfg, toks, mode="train")
+    full, _, _ = forward(tp, tcfg, toks, mode="train")
     cache = init_cache(tcfg, B, S + 2, "cpu")
-    _, cache = forward(tp, tcfg, toks[:, :S - 1], cache=cache, mode="prefill")
-    last, _ = forward(tp, tcfg, toks[:, S - 1:], cache=cache,
+    _, cache, _ = forward(tp, tcfg, toks[:, :S - 1], cache=cache, mode="prefill")
+    last, _, _ = forward(tp, tcfg, toks[:, S - 1:], cache=cache,
                       cache_index=S - 1, mode="decode")
     torch.testing.assert_close(last[:, 0], full[:, -1], **TF_TOL)
 
 
 @pytest.mark.parametrize("index", ["int", "tensor"])
 def test_chunked_prefill_on_cpu_matches_jax(index):
-    """S > 1 at cache_index > 0 (no kernel covers it; the plain
-    ``gqa_attention`` runs on a CPU tensor), with the index as an int or
-    as a 0-d tensor."""
+    """S > 1 at cache_index > 0, with the index as an int (the flash
+    plain version with a query offset, the kernel's route on CUDA) or as
+    a 0-d tensor (the plain ``gqa_attention`` on a CPU tensor)."""
     jcfg, tcfg, jp, tp = _pair("yi-gqa")
     toks = _tokens(3, tcfg.vocab_size)
     jc = jkv.init_cache(jcfg, B, S + 4)
     tc = init_cache(tcfg, B, S + 4, "cpu")
     _, jc, _ = jax_forward(jp, jcfg, jnp.asarray(toks[:, :8]), cache=jc,
                            cache_index=0, mode="prefill")
-    _, tc = forward(tp, tcfg, _t(toks[:, :8]), cache=tc, mode="prefill")
+    _, tc, _ = forward(tp, tcfg, _t(toks[:, :8]), cache=tc, mode="prefill")
     want, _, _ = jax_forward(jp, jcfg, jnp.asarray(toks[:, 8:]), cache=jc,
                              cache_index=8, mode="decode")
     at = 8 if index == "int" else torch.tensor(8)
-    got, _ = forward(tp, tcfg, _t(toks[:, 8:]), cache=tc, cache_index=at,
+    got, _, _ = forward(tp, tcfg, _t(toks[:, 8:]), cache=tc, cache_index=at,
                      mode="decode")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
 
@@ -175,9 +175,16 @@ def test_rope_matches_jax(theta):
                                rtol=1e-5)
 
 
-def test_mrope_is_not_ported():
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        layers.rope_angles(torch.zeros(3, 1, 4, dtype=torch.long), 16, 1e4)
+def test_mrope_angles_without_sections_match_jax():
+    """(P, B, S) positions and no sections: every frequency takes the
+    first axis, as in the JAX package."""
+    pos = np.random.default_rng(8).integers(0, 4097, (3, 2, 5))
+    jcos, jsin = jlayers.rope_angles(jnp.asarray(pos, jnp.int32), 16, 1e4)
+    cos, sin = layers.rope_angles(_t(pos), 16, 1e4)
+    np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
@@ -244,8 +251,9 @@ def test_shapes_and_cache_len_match_jax(shape):
 
 
 def test_unregistered_arch_is_refused():
-    with pytest.raises(KeyError, match="deepseek"):
-        configs.get_config("deepseek-v3-671b")
+    with pytest.raises(KeyError, match="not-an-arch"):
+        configs.get_config("not-an-arch")
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
 
 
 def test_lm_converter_never_takes_the_conv_rule():
@@ -291,11 +299,13 @@ def test_forward_refuses_what_it_does_not_run():
         forward(tp, tcfg, toks, mode="sample")
     with pytest.raises(ValueError, match="cache"):
         forward(tp, tcfg, toks, mode="prefill")
-    mla = dataclasses.replace(tcfg, period_pattern=(("mla", "mlp"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        count_params(mla)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        forward(tp, dataclasses.replace(tcfg, rope="mrope"), toks,
+    with pytest.raises(ValueError, match="unknown mixer"):
+        count_params(dataclasses.replace(
+            tcfg, period_pattern=(("conv", "mlp"),)))
+    with pytest.raises(ValueError, match="sections"):
+        forward(tp, dataclasses.replace(tcfg, rope="mrope",
+                                        mrope_sections=(2, 3)), toks,
+                positions=torch.zeros(3, B, S, dtype=torch.long),
                 mode="train")
 
 
