@@ -138,13 +138,18 @@ before the next, in bfloat16 with random weights:
     prompt embeddings with M-RoPE positions t = 0 and (h, w) over a
     16 x 32 patch grid, 32 decode steps fed the last embedding at text
     positions 32, 33, ...; the logits check (relative 5e-2), its kernel
-    calls held and timed at the recorded shapes (GQA group 7), the
-    served run as in 8; then the same prompt prefilled in 4 chunks of
-    128 (cache_index 0, 128, 256, 384), counters zeroed just before and
-    read just after: its last-position logits within 5e-2 of the
-    one-shot prefill's, the later chunks on the ``wgmma`` route's query
-    offset (84 launches), held against the plain version and timed
-    beside SDPA with the explicit mask at the chunks' shapes.
+    calls held and timed at the recorded shapes (GQA group 7; the decode
+    calls at valid_len t + 1 = 33, below slot + 1 = 513), the served run
+    as in 8. The causal mask follows the query positions (t): the
+    prefill's flash calls take the ``wgmma`` route's position tensor,
+    held against the plain version at the recorded positions and timed
+    beside SDPA with the explicit mask. Then the same prompt prefilled in
+    4 chunks of 128 (cache_index 0, 128, 256, 384), twice, counters
+    zeroed just before and read just after each: at its positions (every
+    chunk on the position tensor, 112 launches) and at the slots (the
+    later chunks on the query offset, 84 launches); the last-position
+    logits within 5e-2 of the one-shot prefill's with the same
+    positions; the chunks' calls held and timed on their route.
 14. deepseek-v3 at full width (MLA ranks q 1536, kv 512, rope 64; 256
     experts top-8 and 1 shared; vocab 129280), depth cut to its 3 dense
     prefix layers and 1 MoE layer, plus the multi-token prediction
@@ -160,13 +165,30 @@ before the next, in bfloat16 with random weights:
     stage's own, and some but not all queries deferred. Then the serving
     CLI (``repro_torch.launch.serve.main``, ``--cascade sdturbo
     --duration 60``) in process, its report logged.
-16. The wall time and the card's line again, one JSON line listing
+16. Training on the card (``training_phase``), on the ``unfused`` route
+    (no kernel has a backward; the JAX package's train steps run none),
+    every launch counter zeroed just before and read just after (all
+    must stay 0): ``python -m repro_torch.launch.train``'s ``main`` at its
+    defaults (reduced smollm-135m, 8 x 128) for 4 steps with checkpoints
+    every 2, then resumed from step 4 for 2 more; smollm-135m at full
+    size (30 layers, d_model 576, vocab 49152, bf16), 16 AdamW steps of
+    8 x 512 Zipf tokens through ``make_train_step``, each between CUDA
+    events (the median step time), the loss falling, a checkpoint at
+    step 8 loaded into fresh trees and the next step taken from both
+    (deterministic algorithms on): trees, metrics and new trees equal bit
+    for bit; reduced deepseek-v3 (MTP, z-loss, 8-bit moments) for one
+    step in 2 microbatches on the card and on the CPU, metrics within
+    1e-3; 6 ``diffusion_loss`` AdamW steps of the served tier-0 UNet at
+    full width, batch 4, timed.
+17. The wall time and the card's line again, one JSON line listing
     every ported kernel, with its launches by path (diffusion, offline,
-    live, lm, xlstm, jamba, lm_family) and, for flash attention, its
-    routes (``tf32x3`` over one UNet forward, ``wgmma`` over one Yi-9B
-    prefill, ``cuda_core`` at the UNet's inputs, ``wgmma_offset`` over
-    one chunked qwen2-vl prompt) and, for the mLSTM and the selective
-    scan, their two routes, with their times and launches;
+    live, lm, xlstm, jamba, lm_family, train) and, for flash attention,
+    its routes (``tf32x3`` over one UNet forward, ``wgmma`` over one
+    Yi-9B prefill, ``cuda_core`` at the UNet's inputs, ``wgmma_offset``
+    over one chunked qwen2-vl prompt at the slots, ``wgmma_positions``
+    over one qwen2-vl prefill and one chunked prompt at its positions)
+    and, for the mLSTM and the selective scan, their two routes, with
+    their times and launches;
     flash attention's float32 route and GroupNorm carry ``was_ms``,
     their earlier kernel's time where this run measured it; then, last,
     the result line
@@ -186,6 +208,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -283,6 +306,23 @@ CHUNK = 128
 CASCADE_ARCHS = ("smollm-135m", "yi-9b")
 CASCADE_BATCH, CASCADE_PROMPT, CASCADE_NEW = 8, 64, 16
 SERVE_ARGV = ["--cascade", "sdturbo", "--duration", "60"]
+# training on the card (the unfused route: plain PyTorch differentiated
+# by autograd, no kernel launches): smollm-135m at full size, the
+# default arch of the JAX package's launch/train.py, TRAIN_STEPS AdamW
+# steps of TRAIN_BATCH x TRAIN_SEQ Zipf tokens with a checkpoint at
+# TRAIN_CKPT_STEP (1.35 GB of bf16 weights and fp32 moments through
+# zlib: one save, one load); the
+# entry point at its defaults (the reduced config, batch 8 x seq 128) for
+# LAUNCH_STEPS steps with checkpoints every 2, then resumed for 2 more;
+# reduced deepseek-v3 (MTP, z-loss, 8-bit moments) in 2
+# microbatches of DS_TRAIN_BATCH / 2 x DS_TRAIN_SEQ, on the card and on
+# the CPU; DIFF_TRAIN_STEPS diffusion_loss steps of the full-width UNet
+# at batch DIFF_TRAIN_BATCH
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 8, 512
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_LR, TRAIN_SEED = 16, 8, 1e-3, 95
+LAUNCH_STEPS = 4
+DS_TRAIN_BATCH, DS_TRAIN_SEQ = 4, 32
+DIFF_TRAIN_BATCH, DIFF_TRAIN_STEPS, DIFF_TRAIN_LR = 4, 6, 1e-4
 
 
 def log(msg: str) -> None:
@@ -1361,15 +1401,22 @@ def recorded_calls(calls):
         calls.append(("swiglu", tuple(g.shape), dt(g), None))
         return saved["swiglu"](g, u)
 
-    def flash(q, k, v, *, causal=True, kv_len=None, q_offset=0):
-        if q_offset:
+    def flash(q, k, v, *, causal=True, kv_len=None, q_offset=0,
+              q_positions=None):
+        if q_positions is not None:
+            calls.append(("flash_positions", (tuple(q.shape),
+                                              tuple(k.shape)), dt(q),
+                          (kv_len, tuple(map(tuple,
+                                             q_positions.tolist())))))
+        elif q_offset:
             calls.append(("flash_offset", (tuple(q.shape), tuple(k.shape)),
                           dt(q), (q_offset, kv_len)))
         else:
             calls.append(("flash", (tuple(q.shape), tuple(k.shape)), dt(q),
                           causal))
         return saved["flash_attention"](q, k, v, causal=causal,
-                                        kv_len=kv_len, q_offset=q_offset)
+                                        kv_len=kv_len, q_offset=q_offset,
+                                        q_positions=q_positions)
 
     def decode(q, k, v, valid_len):
         calls.append(("decode", (tuple(q.shape), tuple(k.shape)), dt(q),
@@ -1499,7 +1546,8 @@ def path_counts(cfg, prefills: int, decodes: int):
 def path_calls(calls, cfg):
     """Check the recorded calls of one prefill and one decode forward
     against the path's (``path_counts``), RMSNorm's two variants apart."""
-    n = dict(Counter(kind for kind, *_ in calls))
+    n = dict(Counter("flash" if kind == "flash_positions" else kind
+                     for kind, *_ in calls))
     c = path_counts(cfg, 1, 1)
     specs = cfg.flat_pattern()
     n_res = sum(ffn is not None for _, ffn in specs) * 2 \
@@ -1802,9 +1850,9 @@ def serve_lm(torch, cfg, params, steps=LM_STEPS, feed=None):
     # the experts this run's tokens are routed to
     moe_apply, routed = L.moe_apply, []
 
-    def recording_moe(p, c, x):
+    def recording_moe(p, c, x, *rest):
         routed.append((p["router"], x))
-        return moe_apply(p, c, x)
+        return moe_apply(p, c, x, *rest)
     L.moe_apply = recording_moe
     t0 = time.perf_counter()
     try:
@@ -1821,6 +1869,7 @@ def serve_lm(torch, cfg, params, steps=LM_STEPS, feed=None):
         L.moe_apply = moe_apply
     decode_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    pos_launches = ops.position_launches()
     want = path_counts(cfg, 1, steps)
     step_ms = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     median = step_ms[len(step_ms) // 2]
@@ -1926,6 +1975,7 @@ def serve_lm(torch, cfg, params, steps=LM_STEPS, feed=None):
                     "cache_len": T,
                     "generated": gen.tolist(), "profile_decode": prof,
                     "profile_prefill": prof_prefill, "flash_routes": routes,
+                    "position_launches": pos_launches,
                     "rec_routes": rec_routes}
 
 
@@ -2243,40 +2293,89 @@ def _offset_case(torch, g, qs, ks, q_off):
             4.0 * B * H * pairs * D)
 
 
-def check_offset_route(torch, calls, what):
-    """The wgmma route with a query offset against its plain version at
-    each recorded offset call's shape (bf16: held and timed; float32 is
-    not its route), with SDPA under the explicit mask as the library
-    time. Returns the rows."""
-    mult = Counter((shape, extra) for kind, shape, _, extra in calls
-                   if kind == "flash_offset")
+def _position_case(torch, g, qs, ks, kv, positions):
+    """Inputs, calls, bytes and flops of one flash call with a query
+    position tensor (the recorded one): the queries against the first kv
+    rows, key j visible to row r of sequence b where j <= positions[b,
+    r]. The library call is SDPA with that mask given explicitly (a
+    boolean (B, 1, Sq, kv) mask; GQA by ``enable_gqa``). The bytes count
+    the K/V rows these positions need (sequence b's first
+    min(kv, max_r positions[b, r] + 1)), the flops the (query, key)
+    pairs they let through."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+    F = torch.nn.functional
+    B, Sq, H, D = qs
+    q = torch.randn(qs, generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    mask = (torch.arange(kv, device=DEV)[None, None, :]
+            <= pos[:, :, None])[:, None]
+    qt, kt, vt = (q.transpose(1, 2), k[:, :kv].transpose(1, 2),
+                  v[:, :kv].transpose(1, 2))
+    pairs = torch.clamp(pos.long() + 1, max=kv).sum().item()
+    kv_rows = torch.clamp(pos.long().amax(dim=1) + 1, max=kv).sum().item()
+    return (lambda: tflash.flash_attention(q, k, v, causal=True, kv_len=kv,
+                                           q_positions=pos),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True, kv_len=kv,
+                                            q_positions=pos),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask,
+                                                   enable_gqa=True),
+            (2 * q.numel() + 2 * kv_rows * ks[2] * D) * 2 + 4 * B * Sq,
+            4.0 * H * pairs * D)
+
+
+def check_chunk_route(torch, calls, what, kind):
+    """The wgmma route with a query offset (``kind`` "flash_offset") or a
+    query-position tensor ("flash_positions") against its plain version
+    at each recorded call of that kind, at its shapes and offset or
+    positions (bf16: held and timed; float32 is not its route), with SDPA
+    under the explicit mask as the library time. Returns the rows."""
+    mult = Counter((shape, extra) for k, shape, _, extra in calls
+                   if k == kind)
     if not mult:
-        fail(f"{what}: no flash call with a query offset was recorded")
+        fail(f"{what}: no {kind} call was recorded")
     g = torch.Generator(device=DEV).manual_seed(91)
     rows = []
-    for ((qs, ks), (q_off, kv)), n in sorted(mult.items(), key=str):
-        kernel, plain, library, nbytes, flops = _offset_case(
-            torch, g, qs, ks, q_off)
+    for ((qs, ks), extra), n in sorted(mult.items(), key=str):
+        if kind == "flash_offset":
+            q_off, kv = extra
+            case = _offset_case(torch, g, qs, ks, q_off)
+            info = {"q_offset": q_off, "kv_len": kv}
+            label = f"offset route q {qs} k/v {ks} q_offset {q_off} " \
+                    f"kv_len {kv}"
+        else:
+            kv, positions = extra
+            kv = ks[1] if kv is None else kv
+            case = _position_case(torch, g, qs, ks, kv, positions)
+            t = sorted({p for row in positions for p in row})
+            info = {"kv_len": kv,
+                    "positions": f"{len(t)} distinct, {t[0]}..{t[-1]}"}
+            label = f"position route q {qs} k/v {ks} kv_len {kv} " \
+                    f"positions {info['positions']}"
+        kernel, plain, library, nbytes, flops = case
         err, tol = _hold(torch, "flash_attention", kernel(), plain(),
                          "bfloat16")
-        row = {"kind": "flash_offset", "q": qs, "k": ks, "q_offset": q_off,
-               "kv_len": kv, "dtype": "bfloat16", "per_path": n,
-               "max_abs_err": err, "route": "wgmma",
+        row = {"kind": kind, "q": qs, "k": ks, **info, "dtype": "bfloat16",
+               "per_path": n, "max_abs_err": err, "route": "wgmma",
                **_time_rows(torch, kernel, plain, library, nbytes, flops,
                             "bfloat16")}
         rows.append(row)
-        _report("flash_attention", row, f"{what} offset route q {qs} k/v "
-                f"{ks} q_offset {q_off} kv_len {kv} bfloat16 x{n} "
+        _report("flash_attention", row, f"{what} {label} bfloat16 x{n} "
                 f"(tol {tol})")
     return rows
 
 
 def chunked_prefill(torch, cfg, params, emb, pos, one_shot):
     """The prompt prefilled in chunks of CHUNK at cache_index 0, CHUNK,
-    ...; every launch counter zeroed just before and read just after:
-    the later chunks' attention on the wgmma route's query offset. Their
-    last-position logits must equal the one-shot prefill's
-    (``one_shot``) within LM_BF16_REL."""
+    ...; every launch counter zeroed just before and read just after.
+    With ``pos`` (the prompt's positions) every chunk's attention takes
+    the wgmma route's query positions; without (the default positions,
+    the slots) the later chunks take its query offset. Their
+    last-position logits must equal the one-shot prefill's (``one_shot``,
+    with the same positions) within LM_BF16_REL."""
     from repro_torch.kernels import ops
     from repro_torch.models.kvcache import init_cache
     from repro_torch.models.transformer import forward
@@ -2288,34 +2387,39 @@ def chunked_prefill(torch, cfg, params, emb, pos, one_shot):
     with torch.no_grad():
         for i in range(chunks):
             sl = slice(i * CHUNK, (i + 1) * CHUNK)
-            logits, cache, _ = forward(params, cfg, emb[:, sl],
-                                       positions=pos[..., sl], cache=cache,
-                                       cache_index=i * CHUNK,
-                                       mode="prefill")
+            logits, cache, _ = forward(
+                params, cfg, emb[:, sl],
+                positions=None if pos is None else pos[..., sl],
+                cache=cache, cache_index=i * CHUNK, mode="prefill")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    offset = ops.offset_launches()
+    offset, at_pos = ops.offset_launches(), ops.position_launches()
     routes = ops.route_counts()
     want = path_counts(cfg, chunks, 0)
     n_attn = sum(m == "attn" for m, _ in cfg.flat_pattern())
+    want_off, want_pos = ((chunks - 1) * n_attn, 0) if pos is None \
+        else (0, chunks * n_attn)
+    how = "the slots" if pos is None else "the prompt's positions"
     last = logits[:, -1].float()
     err = rel_diff(last, one_shot)
-    log(f"chunked prefill {cfg.name}: {chunks} chunks of {CHUNK} at "
-        f"cache_index {[i * CHUNK for i in range(chunks)]} in "
+    log(f"chunked prefill {cfg.name} at {how}: {chunks} chunks of {CHUNK} "
+        f"at cache_index {[i * CHUNK for i in range(chunks)]} in "
         f"{wall * 1e3:.2f} ms; last-position logits vs the one-shot "
         f"prefill max|diff|/max|logit| {err:.3e} (tolerance {LM_BF16_REL}); "
         f"launches {counts} (expected {want}); flash by route {routes}, "
-        f"with a query offset {offset} (expected {(chunks - 1) * n_attn})")
-    if counts != want or offset != (chunks - 1) * n_attn \
+        f"with a query offset {offset} (expected {want_off}), with query "
+        f"positions {at_pos} (expected {want_pos})")
+    if counts != want or (offset, at_pos) != (want_off, want_pos) \
             or routes["wgmma"] != chunks * n_attn:
         fail(f"chunked prefill {cfg.name}: launches {counts}, offset "
-             f"{offset}, routes {routes}")
+             f"{offset}, positions {at_pos}, routes {routes}")
     if not torch.isfinite(last).all() or err > LM_BF16_REL:
         fail(f"chunked prefill {cfg.name}: logits differ from the one-shot "
              f"prefill by {err:.3e} > {LM_BF16_REL}")
     return counts, {"wall_ms": wall * 1e3, "rel_diff": err,
-                    "offset_launches": offset, "flash_routes": routes}
+                    "offset_launches": offset, "position_launches": at_pos,
+                    "flash_routes": routes}
 
 
 def qwen_phase(torch):
@@ -2352,17 +2456,52 @@ def qwen_phase(torch):
         f"{QWEN_ARCH} ")
     counts, details["slice"] = serve_lm(torch, cfg, params, steps=LM_STEPS,
                                         feed=(emb, pos, step_pos))
-    # the one-shot prefill, then the same prompt in chunks
-    cache = init_cache(cfg, LM_BATCH, LM_PROMPT, DEV)
-    one_shot, _ = serve_prefill(params, cfg, cache, emb, pos)
-    del cache
-    ccounts, details["chunked"] = chunked_prefill(
-        torch, cfg, params, emb, pos, one_shot.float())
-    chunk_calls = []
-    with recorded_calls(chunk_calls):
-        chunked_prefill(torch, cfg, params, emb, pos, one_shot.float())
-    details["offset_route"] = check_offset_route(torch, chunk_calls,
-                                                 QWEN_ARCH)
+    # the decode steps sit at t = max(grid) + step, below their slots:
+    # the recorded decode calls (held above) ran at valid_len t + 1
+    valid = sorted({v for kind, _, _, extra in calls if kind == "decode"
+                    for v in extra})
+    log(f"{QWEN_ARCH} decode at t {step_pos[0][0, 0, 0].item()} < slot "
+        f"{LM_PROMPT}: decode attention held at valid_len {valid} (slot + 1 "
+        f"= {LM_PROMPT + 1})")
+    if not valid or max(valid) >= LM_PROMPT + 1:
+        fail(f"{QWEN_ARCH}: the decode call's valid_len {valid} does not "
+             f"follow t < slot")
+    details["positions_route"] = check_chunk_route(
+        torch, calls, f"{QWEN_ARCH} prefill", "flash_positions")
+    # held only (no launch of the path): the prefill's shapes with the
+    # grid's t = 0 on the first half of the prompt and text after it
+    # (t = max(grid) + i), so the mask and the tiles' key ends above key
+    # 0 are held at full width too
+    shapes = next(shape for kind, shape, _, _ in calls
+                  if kind == "flash_positions")
+    half = LM_PROMPT // 2
+    text = tuple([0] * half + [max(QWEN_GRID) + i
+                               for i in range(LM_PROMPT - half)])
+    held = check_chunk_route(
+        torch, [("flash_positions", shapes, None,
+                 (None, (text,) * shapes[0][0]))],
+        f"{QWEN_ARCH} grid then text (held only)", "flash_positions")
+    details["positions_route"] += [dict(r, per_path=0) for r in held]
+    # the one-shot prefill, then the same prompt in chunks: at the
+    # prompt's positions (the position route), then at the slots (the
+    # offset route)
+    ccounts = dict.fromkeys(counts, 0)
+    for key, p in (("chunked", pos), ("chunked_slots", None)):
+        cache = init_cache(cfg, LM_BATCH, LM_PROMPT, DEV)
+        one_shot, _ = serve_prefill(params, cfg, cache, emb, p)
+        del cache
+        c, details[key] = chunked_prefill(torch, cfg, params, emb, p,
+                                          one_shot.float())
+        ccounts = {k: ccounts[k] + c[k] for k in counts}
+        chunk_calls = []
+        with recorded_calls(chunk_calls):
+            chunked_prefill(torch, cfg, params, emb, p, one_shot.float())
+        if p is None:
+            details["offset_route"] = check_chunk_route(
+                torch, chunk_calls, QWEN_ARCH, "flash_offset")
+        else:
+            details["positions_route"] += check_chunk_route(
+                torch, chunk_calls, f"{QWEN_ARCH} chunked", "flash_positions")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2553,24 +2692,330 @@ def lm_family_phase(torch, np):
     c_counts, details["lm_cascade"] = cascade_phase(torch, np)
     details["serve_cli"] = serve_cli_phase()
     total = {k: counts[k] + ds_counts[k] + c_counts[k] for k in counts}
-    rows = details[QWEN_ARCH]["offset_route"]
-    per = {key: sum(r["per_path"] * (r[key] or 0.0) for r in rows)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    entry = {"source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
-             "max_abs_err": max(r["max_abs_err"] for r in rows), **per,
-             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                        for r in rows) else "operations",
-             "launches": details[QWEN_ARCH]["chunked"]["offset_launches"],
-             "per": f"one {QWEN_ARCH} prompt ({LM_BATCH}x{LM_PROMPT}) in "
-                    f"chunks of {CHUNK}: {sum(r['per_path'] for r in rows)} "
-                    "launches with a query offset"}
-    return entry, total, details
+    qd = details[QWEN_ARCH]
+    entries = {}
+    for way, rows, launches, per in (
+            ("wgmma_offset", qd["offset_route"],
+             qd["chunked_slots"]["offset_launches"],
+             f"one {QWEN_ARCH} prompt ({LM_BATCH}x{LM_PROMPT}) at the "
+             f"slots in chunks of {CHUNK}"),
+            ("wgmma_positions", qd["positions_route"],
+             qd["slice"]["position_launches"]
+             + qd["chunked"]["position_launches"],
+             f"one {QWEN_ARCH} prefill and the same prompt in chunks of "
+             f"{CHUNK}, at its M-RoPE positions (t = 0)")):
+        path = [r for r in rows if r["per_path"]]
+        entries[way] = {
+            "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{key: sum(r["per_path"] * (r[key] or 0.0) for r in path)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "launches": launches,
+            "per": f"{per}: {sum(r['per_path'] for r in path)} launches"}
+    return entries, total, details
+
+
+def _step_events(torch, n):
+    return [(torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+
+
+def _median_ms(events):
+    ms = sorted(e0.elapsed_time(e1) for e0, e1 in events)
+    return ms[len(ms) // 2], ms
+
+
+def _bitwise_equal(torch, a, b) -> bool:
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def train_entry_point(torch):
+    """``repro_torch.launch.train.main`` as a user calls it (on the card by
+    default; the reduced config, batch and sequence at their defaults):
+    LAUNCH_STEPS steps with checkpoints every 2, then the same command
+    with 2 more steps resumes from the newest checkpoint."""
+    import io
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import checkpoint
+    out = []
+    with tempfile.TemporaryDirectory() as ck:
+        for steps in (LAUNCH_STEPS, LAUNCH_STEPS + 2):
+            argv = ["--arch", TRAIN_ARCH, "--steps", str(steps), "--lr",
+                    str(TRAIN_LR), "--ckpt", ck, "--ckpt-every", "2",
+                    "--seed", str(TRAIN_SEED)]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                launch_train.main(argv)
+            torch.cuda.synchronize()
+            out.append(buf.getvalue().splitlines())
+            log(f"train entry point {' '.join(argv)} "
+                f"({time.perf_counter() - t0:.2f} s host): "
+                + " | ".join(out[-1]))
+        saved = [st for st, _ in checkpoint.sorted_steps(ck)]
+    want_saved = [LAUNCH_STEPS - 2, LAUNCH_STEPS, LAUNCH_STEPS + 2]
+    if f"resumed from step {LAUNCH_STEPS}" not in out[1] \
+            or out[0][-1] != "done" or out[1][-1] != "done" \
+            or saved != want_saved:
+        fail(f"train entry point: no resume from step {LAUNCH_STEPS}, or "
+             f"checkpoints {saved} != {want_saved}: {out}")
+    return {"stdout": out, "checkpoints": saved}
+
+
+def lm_training(torch, np, cfg):
+    """TRAIN_STEPS AdamW steps of ``make_train_step`` on the full-size
+    model, each between CUDA events, with a checkpoint at
+    TRAIN_CKPT_STEP; that checkpoint loaded into fresh trees, and the next
+    step taken from both the loaded and the kept state (deterministic
+    algorithms on, so both run the same sums): the loaded trees, the
+    step's metrics and the new trees must equal the kept ones bit for
+    bit. The loss must fall."""
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import count_params, init_params
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    tcfg = TrainConfig(opt=OptimizerConfig(
+        peak_lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1),
+        total_steps=TRAIN_STEPS + 1))
+    params = init_params(cfg, seed=TRAIN_SEED, device=DEV)
+    opt_init, step = make_train_step(cfg, tcfg)
+    opt = opt_init(params)
+    rng = np.random.default_rng(TRAIN_SEED)
+    batches = [launch_train.make_batch(cfg, rng, TRAIN_BATCH, TRAIN_SEQ,
+                                       TRAIN_SEED, i, DEV)
+               for i in range(TRAIN_STEPS + 1)]
+    events = _step_events(torch, TRAIN_STEPS)
+    losses, kept = [], None
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as ck:
+        for i, (e0, e1) in enumerate(events):
+            e0.record()
+            params, opt, m = step(params, opt, batches[i])
+            e1.record()
+            losses.append(m["loss"])
+            if i + 1 == TRAIN_CKPT_STEP:
+                checkpoint.save(ck, (params, opt), i + 1, cfg=cfg)
+                kept = (params, opt)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        median, step_ms = _median_ms(events)
+        losses = [x.item() for x in losses]
+        fresh = init_params(cfg, seed=TRAIN_SEED + 1, device=DEV)
+        (lp, lo), at, _ = checkpoint.load(ck, (fresh, opt_init(fresh)),
+                                          device=DEV, cfg=cfg)
+    loaded_equal = _bitwise_equal(torch, (lp, lo), kept)
+    nxt = batches[TRAIN_CKPT_STEP]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = step(*kept, nxt)
+        b = step(lp, lo, nxt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    metrics_equal = all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+    next_equal = _bitwise_equal(torch, a[:2], b[:2])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train {cfg.name} at full size ({count_params(cfg) / 1e6:.1f} M "
+        f"parameters, {cfg.dtype}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"AdamW lr {TRAIN_LR}: loss by step "
+        f"{[round(x, 4) for x in losses]}; step time median "
+        f"{median:.3f} ms (min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}; "
+        f"CUDA events over {TRAIN_STEPS} steps), "
+        f"{tokens / median * 1e3:.0f} tokens/s; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    log(f"train checkpoint round trip at step {at}: loaded trees equal the "
+        f"kept ones bit for bit {loaded_equal}; the next step from both: "
+        f"metrics equal {metrics_equal}, new trees equal {next_equal} "
+        f"(loss {a[2]['loss'].item():.6f})")
+    if not all(np.isfinite(losses)) or np.mean(losses[-4:]) \
+            >= np.mean(losses[:4]):
+        fail(f"train {cfg.name}: the loss did not fall: {losses}")
+    if at != TRAIN_CKPT_STEP or not (loaded_equal and metrics_equal
+                                     and next_equal):
+        fail(f"train {cfg.name}: the checkpoint round trip differs")
+    return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "losses": losses, "step_ms": step_ms, "step_median_ms": median,
+            "tokens_per_s": tokens / median * 1e3, "peak_bytes": peak,
+            "checkpoint_step": at}
+
+
+def deepseek_training(torch, np):
+    """One train step of reduced deepseek-v3 (float32; MTP, z-loss, its
+    8-bit moments) in 2 microbatches, on the card and on the CPU from the
+    same parameters and batch: the metrics and the gradient norm within
+    MODEL_TOL's rtol. The gradients are held through the 8-bit first and
+    second moments this first step writes (0.1 g and 0.03162 |g|, after
+    the 2-microbatch accumulation and the clip): each block's scale (its
+    largest |g| / 127) within that rtol of the leaf's largest, each code
+    within one step (a value may sit on a rounding boundary). The update
+    of step 1 is lr * g / (|g| + eps), +-lr wherever |g| >> eps, so where
+    the CPU's first-moment code is at least 2 (|g| >= 1.5 / 127 of its
+    block's largest, far above the rtol of the gradients) the card's new
+    parameters are held within rtol * lr of the CPU's; below that a
+    gradient's sign may differ within tolerance, and the update with
+    it."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.convert import hwio_to_oihw
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.data import zipf_tokens
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    from repro_torch.tree import leaves, map_tree
+    cfg = reduced_config(DS_ARCH)
+    tcfg = TrainConfig(opt=OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                           total_steps=10), microbatches=2)
+    inp, lab = zipf_tokens(np.random.default_rng(97), DS_TRAIN_BATCH,
+                           DS_TRAIN_SEQ, cfg.vocab_size)
+    cpu_params = init_params(cfg, seed=97, device="cpu")
+    out = {}
+    for dev in (DEV, "cpu"):
+        params = map_tree(lambda t: t.to(dev), cpu_params)
+        opt_init, step = make_train_step(cfg, tcfg)
+        batch = {"inputs": torch.as_tensor(inp, device=dev),
+                 "labels": torch.as_tensor(lab, device=dev)}
+        new, opt, m = step(params, opt_init(params), batch)
+        out[dev] = (params, new, opt, {k: v.item() for k, v in m.items()})
+    params, new, opt, m = out[DEV]
+    _, cnew, copt, pm = out["cpu"]
+    rtol = MODEL_TOL["rtol"]
+    moved = sum(not torch.equal(a, b) for a, b in zip(leaves(params),
+                                                      leaves(new)))
+    err = max(abs(m[k] - pm[k]) / max(abs(pm[k]), 1e-12)
+              for k in ("ce", "mtp_ce", "aux", "loss", "grad_norm"))
+    eight = opt.m_scale is not None and all(
+        t.dtype == torch.int8 for t in leaves(opt.m))
+    if not eight:
+        fail(f"train reduced {DS_ARCH}: the moments are not 8-bit")
+    scale_err = max(
+        ((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        for f in ("m_scale", "v_scale")
+        for a, b in zip(leaves(getattr(opt, f)), leaves(getattr(copt, f))))
+    code_gap = max((a.cpu().int() - b.int()).abs().max().item()
+                   for f in ("m", "v")
+                   for a, b in zip(leaves(getattr(opt, f)),
+                                   leaves(getattr(copt, f))))
+    upd_gap, held = 0.0, 0
+    for a, b, q in zip(leaves(new), leaves(cnew), leaves(copt.m)):
+        sure = hwio_to_oihw(q).abs() >= 2
+        held += int(sure.sum())
+        if sure.any():
+            upd_gap = max(upd_gap, (a.cpu() - b)[sure].abs().max().item()
+                          / m["lr"])
+    log(f"train reduced {DS_ARCH} (MTP, z-loss {tcfg.z_loss}, 8-bit "
+        f"moments {eight}), 2 microbatches of {DS_TRAIN_BATCH // 2} x "
+        f"{DS_TRAIN_SEQ}: card {m}; CPU {pm}; largest relative difference "
+        f"of the metrics and the gradient norm {err:.3e}, of the moments' "
+        f"block scales {scale_err:.3e} (tolerance {rtol}); moment codes "
+        f"within {code_gap} (at most 1); the update at {held} of "
+        f"{sum(t.numel() for t in leaves(new))} parameters (first-moment "
+        f"code >= 2) within {upd_gap:.3e} x lr (tolerance {rtol}); "
+        f"{moved} of {len(leaves(params))} parameter leaves moved")
+    if set(m) != {"ce", "aux", "mtp_ce", "loss", "lr", "grad_norm"} \
+            or err > rtol or scale_err > rtol or code_gap > 1 \
+            or upd_gap > rtol or not held or not m["aux"] > 0 \
+            or moved < len(leaves(params)) // 2:
+        fail(f"train reduced {DS_ARCH}: metrics {m} vs {pm}, block "
+             f"scales {scale_err:.3e}, codes {code_gap}, update "
+             f"{upd_gap:.3e} x lr")
+    return {"card": m, "cpu": pm, "rel_diff": err, "moved": moved,
+            "scale_rel_diff": scale_err, "code_gap": code_gap,
+            "update_gap_lr": upd_gap, "update_held": held}
+
+
+def diffusion_training(torch, full_cfg):
+    """DIFF_TRAIN_STEPS AdamW steps of ``diffusion_loss`` (t and noise
+    from a seeded generator) on the served tier-0 UNet at its full width,
+    each between CUDA events."""
+    from repro_torch.models.diffusion import diffusion_loss
+    from repro_torch.models.unet import init_unet
+    from repro_torch.training.optimizer import OptimizerConfig, make_adamw
+    from repro_torch.tree import leaves, unflatten
+    cfg = dataclasses.replace(full_cfg, name="tier0-turbo", num_steps=1)
+    params = init_unet(cfg, seed=0, device=DEV)
+    opt_init, opt_update = make_adamw(OptimizerConfig(
+        peak_lr=DIFF_TRAIN_LR, warmup_steps=1,
+        total_steps=DIFF_TRAIN_STEPS))
+    opt = opt_init(params)
+    g = torch.Generator(device=DEV).manual_seed(99)
+    shape = (DIFF_TRAIN_BATCH, cfg.image_size, cfg.image_size,
+             cfg.in_channels)
+    x0 = torch.randn(shape, generator=g, device=DEV).clamp(-1, 1)
+    toks = torch.randint(0, 1024, (DIFF_TRAIN_BATCH, PROMPT_LEN),
+                         generator=g, device=DEV)
+    events = _step_events(torch, DIFF_TRAIN_STEPS)
+    losses = []
+    torch.cuda.synchronize()
+    for e0, e1 in events:
+        e0.record()
+        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss = diffusion_loss(unflatten(params, flat), cfg, x0, toks,
+                              generator=g)
+        grads = torch.autograd.grad(loss, flat)
+        params, opt, _ = opt_update(unflatten(params, list(grads)), opt,
+                                    params)
+        e1.record()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    median, step_ms = _median_ms(events)
+    losses = [x.item() for x in losses]
+    log(f"train {cfg.name} UNet at full width (base {cfg.base_channels}, "
+        f"{cfg.image_size}x{cfg.image_size}x{cfg.in_channels}) with "
+        f"diffusion_loss, batch {DIFF_TRAIN_BATCH}, AdamW lr "
+        f"{DIFF_TRAIN_LR}: loss by step {[round(x, 4) for x in losses]}; "
+        f"step time median {median:.3f} ms (min {step_ms[0]:.3f}; CUDA "
+        f"events over {DIFF_TRAIN_STEPS} steps)")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train {cfg.name}: losses not finite: {losses}")
+    return {"batch": DIFF_TRAIN_BATCH, "losses": losses, "step_ms": step_ms,
+            "step_median_ms": median}
+
+
+def training_phase(torch, np, full_cfg):
+    """Training on the card, on the unfused route (no kernel has a
+    backward; the JAX package's train steps run none): the entry point,
+    the timed full-size LM steps with the checkpoint round trip, reduced
+    deepseek-v3 against the CPU, the full-width UNet's diffusion_loss
+    steps. Every launch counter zeroed just before and read just after:
+    no kernel may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config(TRAIN_ARCH)
+    details = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    details["entry_point"] = train_entry_point(torch)
+    details["lm"] = lm_training(torch, np, cfg)
+    details["deepseek"] = deepseek_training(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    details["diffusion"] = diffusion_training(torch, full_cfg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"training launches: {counts} (expected none: the unfused route)")
+    if any(counts.values()):
+        fail(f"training launched kernels: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, details
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
     args = ap.parse_args(argv)
+    # cuBLAS's workspace as PyTorch's deterministic mode asks for it (the
+    # training phase's checkpoint round trip turns that mode on)
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2625,8 +3070,9 @@ def main(argv=None) -> int:
     for arch in REC_ARCHS:
         entry, rec_counts[arch], details[arch] = recurrent_phase(torch, arch)
         rec_entries.append(entry)
-    offset_entry, family_counts, details["lm_family"] = lm_family_phase(
+    family_entries, family_counts, details["lm_family"] = lm_family_phase(
         torch, np)
+    train_counts, details["training"] = training_phase(torch, np, full_cfg)
     # flash attention's three routes: the diffusion path's float32 calls
     # on tf32x3, the LM paths' bf16 calls on wgmma; cuda_core (no path's
     # head dim) timed at the UNet's inputs as the float32 route's earlier
@@ -2636,8 +3082,8 @@ def main(argv=None) -> int:
               "lm": details["lm"]["slice"]["flash_routes"],
               **{a: details[a]["slice"]["flash_routes"] for a in REC_ARCHS},
               "qwen": details["lm_family"][QWEN_ARCH]["slice"]["flash_routes"],
-              "chunked": details["lm_family"][QWEN_ARCH]["chunked"][
-                  "flash_routes"],
+              **{key: details["lm_family"][QWEN_ARCH][key]["flash_routes"]
+                 for key in ("chunked", "chunked_slots")},
               "cascade": details["lm_family"]["lm_cascade"]["flash_routes"]}
     lm_flash = lm_entries.pop("flash_attention")
     fa_entry["routes"] = {}
@@ -2654,9 +3100,9 @@ def main(argv=None) -> int:
         "bound_ms": fa_entry["was_bound_ms"], "bound_by": "operations",
         "library_ms": fa_entry["library_ms"], "per": fa_entry["per"],
         "launches": sum(r["cuda_core"] for r in routes.values())}
-    # the wgmma route with a query offset (its launches are also among
-    # wgmma's)
-    fa_entry["routes"]["wgmma_offset"] = offset_entry
+    # the wgmma route with a query offset and with query positions (their
+    # launches are also among wgmma's)
+    fa_entry["routes"].update(family_entries)
     for e in rec_entries:      # the recurrences' launches by route
         for way, r in e["routes"].items():
             r["launches"] = sum(
@@ -2670,7 +3116,8 @@ def main(argv=None) -> int:
                    "lm": lm_counts[e["name"]],
                    "xlstm": rec_counts[REC_ARCHS[0]][e["name"]],
                    "jamba": rec_counts[REC_ARCHS[1]][e["name"]],
-                   "lm_family": family_counts[e["name"]]}
+                   "lm_family": family_counts[e["name"]],
+                   "train": train_counts[e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         kernels.append({k: e[k] for k in (

@@ -13,7 +13,21 @@
 // query row r at absolute position q_off + r against keys 0..kv_len-1
 // (a prompt chunk written into a KV cache at cache_index = q_off, with
 // kv_len = q_off + Sq); the causal mask is then col > q_off + row, and
-// q_off = 0 is the same-position mask of the TPU kernel.
+// q_off = 0 is the same-position mask of the TPU kernel. A query-position
+// tensor qpos (int32 (B, Sq), optional) places row r of sequence b at
+// qpos[b, r] instead: the JAX package's mask (key <= the query's position:
+// M-RoPE's t axis, or the positions a forward is given), which differs from
+// the slots on an image prompt whose patches all sit at t = 0. Each query
+// tile's key end is then its rows' largest position + 1, found before the
+// flash kernel by a small one (tile_ends: a warp a tile reads its 128
+// positions and reduces them), so the producer and the consumers read one
+// int a tile and the producer keeps its single-lane loop; a tile whose rows
+// all sit at t = 0 loads exactly one K/V tile, and every tile at least
+// one, which holds key 0. A thread masks a K/V tile once it reaches past
+// its own rows' positions. The kernel is compiled twice (POS): without a
+// position tensor it is the offset kernel as it was (the same tests at
+// run time in one kernel made that route 13-16 % slower on the H100,
+// scripts/flash_times_torch.py).
 //
 // The one numerical difference from the TPU kernel: that kernel
 // multiplies P in fp32 by V widened to fp32; here P, computed in fp32,
@@ -239,15 +253,33 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ends[b * n_qt + t] = 1 + the largest position among query rows
+// t * BQ .. t * BQ + BQ - 1 (those below Sq) of sequence b, at least 1:
+// one warp a query tile, 4 rows a lane
+__global__ void tile_ends(const int* __restrict__ qpos, int* __restrict__ ends,
+                          int B, int Sq, int n_qt) {
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (w >= B * n_qt) return;  // w is the same for the whole warp
+  const int b = w / n_qt, q0 = (w % n_qt) * BQ;
+  int m = 0;
+  for (int r = q0 + (threadIdx.x & 31); r < min(q0 + BQ, Sq); r += 32)
+    m = max(m, __ldg(qpos + (size_t)b * Sq + r));
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) ends[w] = m + 1;
+}
+
 // a persistent block walks query tiles (batch, head, 128 rows); see the
-// note above
-template <int D>
+// note above. POS: rows at qpos[b, row] with key ends `ends` (else at
+// q_off + row; both pointers unused)
+template <int D, bool POS>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  __nv_bfloat16* __restrict__ o, int B, int Sq, int H, int KH,
-                 int kv_len, int causal, int q_off, float scale_log2) {
+                 int kv_len, int causal, int q_off,
+                 const int* __restrict__ qpos,
+                 const int* __restrict__ ends, float scale_log2) {
   using C = Tc<D>;
   constexpr int HALVES = D / ATOM;
   extern __shared__ unsigned char smem_raw[];
@@ -266,14 +298,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x;
   const int n_qt = (Sq + BQ - 1) / BQ, n_items = B * H * n_qt;
   // work item i: the longest query tiles of a causal call come first
-  // (by q_off + q0, which for one call is the order of q0)
+  // (by q_off + q0, which for one call is the order of q0); with qpos the
+  // tile's key end is its rows' (from `ends`), and it loads at least one tile
   auto item = [&](int i, int& b, int& h, int& q0, int& nk) {
     const int slot = i / (B * H), bh = i % (B * H);
     b = bh / H;
     h = bh % H;
-    q0 = (causal ? n_qt - 1 - slot : slot) * BQ;
-    const int k_end = causal ? min(kv_len, q_off + q0 + BQ) : kv_len;
-    nk = (k_end + BK - 1) / BK;
+    const int qt = causal ? n_qt - 1 - slot : slot;
+    q0 = qt * BQ;
+    if constexpr (POS) {
+      const int k_end =
+          causal ? min(kv_len, __ldg(ends + b * n_qt + qt)) : kv_len;
+      nk = max((k_end + BK - 1) / BK, 1);
+    } else {
+      const int k_end = causal ? min(kv_len, q_off + q0 + BQ) : kv_len;
+      nk = (k_end + BK - 1) / BK;
+    }
   };
 
   if (tid == 0) {
@@ -337,7 +377,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     item(i, b, h, q0, nk);
     const int qs = n & 1;
     // absolute positions of the thread's two rows, for the causal mask
-    const int row_lo = q_off + q0 + r_in, row_hi = row_lo + 8;
+    int row_lo = q_off + q0 + r_in, row_hi = row_lo + 8;
+    if constexpr (POS) {
+      const int* qp = qpos + (size_t)b * Sq;
+      row_lo = __ldg(qp + min(q0 + r_in, Sq - 1));
+      row_hi = __ldg(qp + min(q0 + r_in + 8, Sq - 1));
+    }
     float acc[D / 2];  // O: 64 x D in wgmma's accumulator layout
 #pragma unroll
     for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
@@ -380,8 +425,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     // P; returns the factor the accumulator is to be rescaled by
     auto softmax = [&](int j, float (&alpha)[2]) {
       const int k0 = j * BK;
-      const bool mask = k0 + BK > kv_len ||
-                        (causal && k0 + BK - 1 > q_off + q0 + wg * 64);
+      // a tile reaching past the warpgroup's first row (with qpos: past
+      // the thread's own rows) is masked
+      const bool mask =
+          k0 + BK > kv_len ||
+          (causal && k0 + BK - 1 > (POS ? min(row_lo, row_hi)
+                                        : q_off + q0 + wg * 64));
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int k = 0; k < BK / 8; ++k)
@@ -519,10 +568,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KH, int kv_len, int causal, int q_off,
-           float scale, int sms, cudaStream_t stream) {
-  static unsigned int smem_set = 0;
-  cudaError_t err = set_smem_once((const void*)flash_fwd_tc<D>, Tc<D>::SMEM,
-                                  &smem_set);
+           const int* qpos, int* ends, float scale, int sms,
+           cudaStream_t stream) {
+  static unsigned int smem_set[2] = {0, 0};
+  const bool pos = qpos && causal;
+  cudaError_t err = set_smem_once(
+      pos ? (const void*)flash_fwd_tc<D, true>
+          : (const void*)flash_fwd_tc<D, false>,
+      Tc<D>::SMEM, &smem_set[pos]);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -530,10 +583,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       !tensor_map(&mk, k, BF16, 2, ATOM, BK, D, KH, Sk, B) ||
       !tensor_map(&mv, v, BF16, 2, ATOM, BK, D, KH, Sk, B))
     return -2;
-  const int items = B * H * ((Sq + BQ - 1) / BQ);
-  flash_fwd_tc<D><<<min(items, sms), THREADS, Tc<D>::SMEM, stream>>>(
+  const int n_qt = (Sq + BQ - 1) / BQ, items = B * H * n_qt;
+  if (pos) {
+    tile_ends<<<(B * n_qt + 3) / 4, 128, 0, stream>>>(qpos, ends, B, Sq,
+                                                       n_qt);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto kernel = pos ? flash_fwd_tc<D, true> : flash_fwd_tc<D, false>;
+  kernel<<<min(items, sms), THREADS, Tc<D>::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, Sq, H, KH, kv_len,
-      causal, q_off, scale * LOG2E);
+      causal, q_off, qpos, pos ? ends : nullptr, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -544,21 +604,27 @@ extern "C" {
 // bfloat16 q: (B, Sq, H, D); k, v: (B, Sk, KH, D); o: (B, Sq, H, D); all
 // contiguous, 16-byte aligned, on the device of `stream`; D 64 or 128.
 // `q_off` >= 0 is the absolute position of query row 0 (the causal mask
-// is col > q_off + row); `sms` is the device's SM count, the most blocks
-// of the persistent grid.
+// is col > q_off + row); `qpos`, where not null, int32 (B, Sq) on the
+// device, >= 0, each query row's position instead (col > qpos[b, row]),
+// and `scratch` then int32 on the device with room for B * Sq values (the
+// query tiles' key ends; B * ceil(Sq / 128) are written); `sms` is the
+// device's SM count, the most blocks of the persistent grid.
 // Returns 0, a cudaError_t, -1 for an unsupported D, or -2 if a tensor
 // map could not be encoded.
 int flash_attention_tc_forward(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KH,
                                int D, int kv_len, int causal, float scale,
-                               int q_off, int sms, void* stream) {
+                               int q_off, const void* qpos, void* scratch,
+                               int sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qp = static_cast<const int*>(qpos);
+  int* ends = static_cast<int*>(scratch);
   if (D == 64)
     return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal, q_off,
-                      scale, sms, s);
+                      qp, ends, scale, sms, s);
   if (D == 128)
     return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal, q_off,
-                       scale, sms, s);
+                       qp, ends, scale, sms, s);
   return -1;
 }
 

@@ -23,6 +23,18 @@ bf16 LM serves on); its launches are also counted apart
 (``flash_attention.offset_launches``). The float32 and CUDA-core kernels
 keep the same-position mask and raise at ``q_offset`` > 0.
 
+A query-position tensor (``q_positions``, int32 (B, Sq)) places query
+row r of sequence b at ``q_positions[b, r]``: the JAX package's mask
+(key <= the query's position, M-RoPE's t axis or the positions a
+forward is given), which differs from the slots on an image prompt (all
+patches at t = 0) or custom positions. ``wgmma`` takes it: each tile's
+last key and tile skip come from its rows' largest position, and its
+launches are counted apart too (``flash_attention.position_launches``).
+A small kernel in the same source finds each query tile's key end before
+the flash kernel runs, into scratch the wrapper allocates.
+The float32 and CUDA-core kernels raise on positions other than
+``q_offset + arange(Sq)`` (checked on the host, a sync they alone pay).
+
 Bound on an H100 SXM at the UNet's shape (q (8,256,4,128), k/v
 (8,264,4,128), f32, non-causal): 1.11 GFLOP, taken at fp32 accuracy as
 3 x 1.11 GFLOP of TF32 at 495 TFLOP/s, 6.7 us (16.5 us at the 67 TFLOP/s
@@ -107,7 +119,9 @@ def _forward():
 def _forward_tc():
     global _FN_TC
     if _FN_TC is None:
-        _FN_TC = _bind("flash_attention_tc", [ctypes.c_int, ctypes.c_int])
+        _FN_TC = _bind("flash_attention_tc",
+                       [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int])
     return _FN_TC
 
 
@@ -120,13 +134,16 @@ def _forward_tf32():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0,
+                    q_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Launch the kernel. q: (B,Sq,H,D); k, v: (B,Sk,KH,D) with H = KH*G,
     contiguous CUDA tensors of one dtype (float32 or bfloat16).
     ``kv_len`` masks k/v rows at or past it (default Sk); ``q_offset`` is
-    the absolute position of query row 0 for the causal mask (``wgmma``
-    only). Raises on anything the kernel does not take; never falls
-    back."""
+    the absolute position of query row 0 for the causal mask, and
+    ``q_positions`` (B, Sq) int32 on q's device, where given, each query
+    row's position (``wgmma`` only, both; the positions must be >= 0).
+    Raises on anything the kernel does not take; never falls back."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention kernel: {name} is not a CUDA "
@@ -164,6 +181,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"at cache_index > 0) is taken by the bf16 wgmma route only, at "
             f"head dims {TC_HEAD_DIMS}; {q.dtype} at head dim {D} routes "
             f"to {way}")
+    qpos = None
+    if q_positions is not None and causal:
+        if (q_positions.dtype != torch.int32 or q_positions.device != q.device
+                or tuple(q_positions.shape) != (B, Sq)):
+            raise ValueError(
+                f"flash_attention kernel: q_positions must be int32 "
+                f"({B}, {Sq}) on {q.device}, got {q_positions.dtype} "
+                f"{tuple(q_positions.shape)} on {q_positions.device}")
+        if way == "wgmma":
+            qpos = q_positions.contiguous()
+        elif not torch.equal(q_positions, q_off + torch.arange(
+                Sq, dtype=torch.int32, device=q.device).expand(B, Sq)):
+            raise ValueError(
+                f"flash_attention kernel: query positions other than the "
+                f"slots are taken by the bf16 wgmma route only, at head "
+                f"dims {TC_HEAD_DIMS}; {q.dtype} at head dim {D} routes to "
+                f"{way}")
     if way != "cuda_core":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
@@ -178,7 +212,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 B, Sq, Sk, H, KH, D, kv, int(causal), 1.0 / math.sqrt(D))
         if way == "wgmma":
             fn, errstr = _forward_tc()
-            err = fn(*args, q_off, sm_count(q.device), stream)
+            # the query tiles' key ends (B * ceil(Sq / 128) written; B * Sq
+            # bounds it whatever the kernel's tile)
+            ends = None if qpos is None else torch.empty_like(qpos)
+            err = fn(*args, q_off, 0 if qpos is None else qpos.data_ptr(),
+                     0 if ends is None else ends.data_ptr(),
+                     sm_count(q.device), stream)
         elif way == "tf32x3":
             fn, errstr = _forward_tf32()
             err = fn(*args, plan_key_groups(B, H, Sq, sm_count(q.device)),
@@ -191,7 +230,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            + errstr(err).decode())
     flash_attention.launches += 1
     flash_attention.route_launches[way] += 1
-    if q_off:
+    if qpos is not None:
+        flash_attention.position_launches += 1
+    elif q_off:
         flash_attention.offset_launches += 1
     return out
 
@@ -199,3 +240,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention.offset_launches = 0
+flash_attention.position_launches = 0

@@ -8,7 +8,9 @@ launched; ``launch_counts``/``reset_launch_counts`` read and zero them,
 and a kernel with more than one route counts per route as well
 (``route_counts``). No kernel has a backward, so on CUDA a call that
 autograd would differentiate (grad mode on, an input that requires
-grad) raises and names the ``"unfused"`` route (``needs_grad``).
+grad) raises and names the ``"unfused"`` route (``needs_grad``);
+``pick(name, impl)`` gives a model the function of that route: the
+plain version, which autograd differentiates on any device.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import mlstm_chunk as _mlstm
 from repro_torch.kernels import ref
 from repro_torch.kernels import swiglu as _swiglu
+from repro_torch.kernels.impls import resolve_kernel_impl
 
 KERNELS = {"flash_attention": _flash.flash_attention,
            "fused_groupnorm": _gn.fused_groupnorm,
@@ -74,16 +77,20 @@ def _refuse_grad(kernel: str, *tensors) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    kv_len: Optional[int] = None, q_offset: int = 0):
+                    kv_len: Optional[int] = None, q_offset: int = 0,
+                    q_positions=None):
     """q: (B,Sq,H,D); k, v: (B,Sk,KH,D); query row r at position
-    ``q_offset + r``. See ``ref.flash_attention_ref``."""
+    ``q_offset + r``, or at ``q_positions[b, r]`` ((B, Sq) int32) where
+    given. See ``ref.flash_attention_ref``."""
     if _device_type(q, "flash_attention") == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset,
+                                       q_positions=q_positions)
     _refuse_grad("flash_attention", q, k, v)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
-                                  kv_len=kv_len, q_offset=q_offset)
+                                  kv_len=kv_len, q_offset=q_offset,
+                                  q_positions=q_positions)
 
 
 def fused_groupnorm(x, scale, bias, *, groups: int, act: bool = True,
@@ -150,6 +157,18 @@ def mamba_scan(u, dt, A, B, C, D, h):
                              A.contiguous(), B, C, D.contiguous(), h)
 
 
+def pick(name: str, impl: str = "fused"):
+    """The function a model's call of kernel ``name`` takes on route
+    ``impl`` (``kernels/impls.py``): ``fused`` this module's dispatcher
+    (read when called, so a swapped module attribute is seen), ``unfused``
+    the plain version (``PLAIN``) on any device. No kernel has a
+    backward, so the train steps take ``unfused``: what the JAX package's
+    train steps compute, through plain ops that autograd differentiates."""
+    if resolve_kernel_impl(impl) == "unfused":
+        return PLAIN[name]
+    return globals()[name]
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -158,6 +177,12 @@ def offset_launches() -> int:
     """Flash attention's launches with a query offset (``q_offset`` > 0,
     a prompt chunk at ``cache_index`` > 0), all on ``wgmma``."""
     return _flash.flash_attention.offset_launches
+
+
+def position_launches() -> int:
+    """Flash attention's launches with a query-position tensor (a
+    forward given positions), all on ``wgmma``."""
+    return _flash.flash_attention.position_launches
 
 
 def route_counts(kernel: str = "flash_attention") -> Dict[str, int]:
@@ -176,3 +201,4 @@ def reset_launch_counts() -> None:
         for way in fn.route_launches:
             fn.route_launches[way] = 0
     _flash.flash_attention.offset_launches = 0
+    _flash.flash_attention.position_launches = 0

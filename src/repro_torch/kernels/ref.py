@@ -23,17 +23,24 @@ def group_count(groups: int, channels: int) -> int:
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        kv_len: Optional[int] = None, q_offset: int = 0):
+                        kv_len: Optional[int] = None, q_offset: int = 0,
+                        q_positions=None):
     """q: (B,Sq,H,D); k,v: (B,Sk,KH,D) with H = KH*G. fp32 softmax; the
     causal mask places query row r at position ``q_offset + r`` (0: the
-    same-position mask); ``kv_len`` masks k/v rows at or past that
+    same-position mask), or, with ``q_positions`` (B, Sq) ints, query
+    row r of sequence b at ``q_positions[b, r]``: key column c is masked
+    where c > that position. ``kv_len`` masks k/v rows at or past that
     index. Output in q's dtype."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
     qg = q.reshape(B, Sq, KH, G, D).float()
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(D)
-    if causal:
+    if causal and q_positions is not None:
+        cols = torch.arange(Sk, device=q.device)
+        mask = cols[None, None, :] <= q_positions.to(q.device)[:, :, None]
+        s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    elif causal:
         mask = torch.ones(Sq, Sk, dtype=torch.bool,
                           device=q.device).tril(int(q_offset))
         s = s.masked_fill(~mask, float("-inf"))
@@ -121,7 +128,9 @@ def mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m):
     kf, vf = k.float(), v.float()
     logf = torch.nn.functional.logsigmoid(f_pre.float())
     ipre = i_pre.float()
-    Ct, nt, mt = C, n, m
+    # from copies: the state tensors are overwritten at the end, and
+    # autograd still needs the initial state the first step read
+    Ct, nt, mt = C.clone(), n.clone(), m.clone()
     hs = []
     for t in range(T):
         m_new = torch.maximum(logf[:, t] + mt, ipre[:, t])
@@ -153,7 +162,7 @@ def mamba_scan_ref(u, dt, A, B, C, D, h):
     T = u.shape[1]
     uf, dtf = u.float(), dt.float()
     Bf, Cf, Af = B.float(), C.float(), A.float()
-    ht = h
+    ht = h.clone()         # h is overwritten at the end (see mlstm)
     ys = []
     for t in range(T):
         dA = torch.exp(dtf[:, t, :, None] * Af)

@@ -1,10 +1,11 @@
 """Diffusion process: cosine schedule, forward noising, DDIM and Euler
 samplers.
 
-Port of ``repro/models/diffusion.py`` (``q_sample``, ``ddim_sample``,
-``euler_sample``). The sampler loops are Python loops over a host-side
-timestep table; each step runs the UNet on the device. The training
-loss comes with the training slice.
+Port of ``repro/models/diffusion.py`` (``q_sample``, ``diffusion_loss``,
+``ddim_sample``, ``euler_sample``). The sampler loops are Python loops
+over a host-side timestep table; each step runs the UNet on the device.
+Randomness comes from the caller (the noise, the timesteps, or an
+explicit ``torch.Generator``): there is no global RNG.
 """
 from __future__ import annotations
 
@@ -46,6 +47,32 @@ def q_sample(x0, t, noise):
     ab = torch.as_tensor(_schedule_np(), device=x0.device)[t]
     ab = ab[:, None, None, None]
     return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+
+
+def diffusion_loss(params, cfg: DiffusionConfig, x0, prompt_tokens, *,
+                   t=None, noise=None,
+                   generator: Optional[torch.Generator] = None,
+                   impl: str = "unfused"):
+    """The epsilon-prediction loss ``mean((eps_hat - noise)^2)`` at x_t =
+    ``q_sample(x0, t, noise)``. ``t`` (B,) ints in [0, 1000) and
+    ``noise`` (x0's shape) are drawn from ``generator`` where not given
+    (the JAX package draws them from two halves of one key; a caller
+    that wants its numbers draws them so and passes them in). ``impl``:
+    the UNet's route, ``unfused`` by default (the JAX package's ``xla``
+    route, which autograd differentiates; no kernel has a backward)."""
+    B = x0.shape[0]
+    if (t is None or noise is None) and generator is None:
+        raise ValueError("diffusion_loss: pass t and noise, or a "
+                         "torch.Generator to draw them from")
+    if t is None:
+        t = torch.randint(0, NUM_TRAIN_STEPS, (B,), generator=generator,
+                          device=x0.device)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
+                            device=x0.device)
+    xt = q_sample(x0, t, noise)
+    eps = apply_unet(params, cfg, xt, t, prompt_tokens, impl=impl)
+    return torch.mean(torch.square(eps - noise))
 
 
 def ddim_sample(params, cfg: DiffusionConfig, prompt_tokens, init_noise,

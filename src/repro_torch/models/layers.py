@@ -13,6 +13,11 @@ K/V (train and prefill) and decode attention over the cache (S = 1).
 LayerNorm, GELU, RoPE, the MoE router and dispatch, and the matmuls
 have no kernel in the JAX package and stay plain PyTorch. The JAX
 package's sharding constraints have no counterpart on one card.
+
+Every function that reaches a kernel takes ``impl`` (``kernels/impls.py``):
+``fused`` (the default) goes through ``ops``, ``unfused`` takes each
+kernel's plain version on any device, the route autograd differentiates
+(the train steps').
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.impls import resolve_kernel_impl
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -69,15 +75,16 @@ def _layernorm(params, x, kind: str, eps: float):
     return out.to(x.dtype)
 
 
-def norm_apply(params, x, kind: str, eps: float = 1e-5, residual=None):
+def norm_apply(params, x, kind: str, eps: float = 1e-5, residual=None,
+               impl: str = "fused"):
     """Normalise x over its last dim. With ``residual`` the input is
     ``x + residual`` and the result ``(normed, x + residual)``: for
     RMSNorm one launch of the fused kernel's residual variant, which sums
     in float32 (the JAX model adds in the activation dtype first; in
     bfloat16 the two differ by one rounding of the sum)."""
     if kind == "rmsnorm":
-        return ops.fused_rmsnorm(x, params["scale"], residual=residual,
-                                 eps=eps)
+        return ops.pick("fused_rmsnorm", impl)(x, params["scale"],
+                                               residual=residual, eps=eps)
     if kind not in ("layernorm", "nonparam_ln"):
         raise ValueError(kind)
     if residual is None:
@@ -140,7 +147,8 @@ def gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
     ``kv_valid_len`` (B,) masks cache rows at or past it. fp32 softmax.
     The port runs it where no kernel covers the call: MLA's prefill (its
     query/key head dim differs from its value head dim), and a prompt
-    chunk written at a 0-d tensor ``cache_index`` on a CPU tensor."""
+    chunk written at a 0-d tensor ``cache_index`` (a CPU tensor, or the
+    ``unfused`` route)."""
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -190,10 +198,24 @@ def slots_for(seq: int, cache_index, device):
     return torch.arange(seq, device=device) + cache_index
 
 
-def decode_valid_len(slots, batch: int):
+def query_positions(positions):
+    """(B, S) int32 positions of the causal mask (the JAX package's
+    ``qpos_1d``): M-RoPE's t axis, the first of (P, B, S), else the
+    (B, S) positions."""
+    pos = positions[0] if positions.ndim == 3 else positions
+    return pos.to(torch.int32).contiguous()
+
+
+def decode_valid_len(slots, batch: int, q_positions=None):
     """(B,) int32 live cache rows after writing the token at ``slots``
-    (S = 1): ``slot + 1`` for every sequence, on the device."""
-    return (slots + 1).to(torch.int32).expand(batch).contiguous()
+    (S = 1): ``slot + 1`` for every sequence, or, with the token's query
+    positions t_b ((B, 1), ``query_positions``), ``min(slot + 1, t_b +
+    1)``: the JAX package lets the token see the keys at or below t_b and
+    below ``cache_index + 1``. On the device (no host sync)."""
+    vl = (slots + 1).to(torch.int32).expand(batch)
+    if q_positions is not None:
+        vl = torch.minimum(vl, q_positions[:, -1].to(torch.int32) + 1)
+    return vl.contiguous()
 
 
 def rope_positions(cfg, positions):
@@ -208,37 +230,42 @@ def rope_positions(cfg, positions):
 
 
 def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
-               slots=None, valid_len=None):
+               slots=None, valid_len=None, q_positions=None,
+               slot_mask: bool = False, impl: str = "fused"):
     """GQA attention block. x: (B, S, D); positions: (B, S), or (P, B, S)
     with M-RoPE, the rotary positions. ``slots``: (S,), the sequence
-    slots ``cache_index + arange(S)`` (``slots_for``), and ``valid_len``:
-    (B,) int32, the live cache rows of a decode step (``slots[-1] + 1``);
-    each computed here when not given (a forward computes them once for
-    all its layers).
+    slots ``cache_index + arange(S)`` (``slots_for``), where the cache is
+    written; ``q_positions``: (B, S) int32, the positions of the causal
+    mask (``query_positions(positions)``); ``valid_len``: (B,) int32, the
+    live cache rows of a decode step (``decode_valid_len``); each
+    computed here when not given (a forward computes them once for all
+    its layers).
 
-    The causal mask and the cache follow the slots, the rows of the
-    sequence; the positions only turn the rotary angles. This is the
-    JAX package's attention wherever its query positions (the positions,
-    or M-RoPE's first axis) are the slots, as the default positions are;
-    it masks by those positions instead, which differs on an M-RoPE
-    prompt whose first axis is not the sequence (ROADMAP.md, Queue 3).
+    The causal mask follows the query positions, as the JAX package's
+    does: key j is visible to a query at position t where j <= t (and j
+    lies below ``cache_index + S``). M-RoPE's t axis is not the sequence
+    on an image prompt (every patch at t = 0), so there a query sees key
+    0 only. ``slot_mask=True`` says the positions are the slots (a
+    forward given no positions), so the mask is the plain causal one with
+    a query offset.
 
     ``cache``: ``{"k", "v"}`` of shape (B, T_max, KH, hd) or None. The
     new K/V rows are written into it in place at the slots (the
     counterpart of the JAX step's donated cache). Attention runs as:
       * no cache, or a cache filled from the int ``cache_index`` 0:
-        the flash kernel, causal over the S fresh K/V rows (what the JAX
-        package computes over the padded cache with ``kv_valid_len =
-        S``);
+        the flash kernel over the S fresh K/V rows (what the JAX package
+        computes over the padded cache with ``kv_valid_len = S``);
       * S = 1 against a cache: the decode kernel over the cache with
-        ``valid_len = slot + 1``, a device tensor (no host sync);
+        ``valid_len = min(slot + 1, t + 1)`` (``slot + 1`` under
+        ``slot_mask``), a device tensor (no host sync);
       * S > 1 at an int ``cache_index`` > 0 (a prompt chunk): the flash
-        kernel over the cache's rows with query offset ``cache_index``
-        and ``kv_len = cache_index + S`` (on CUDA the bf16 ``wgmma``
-        route; the float32 routes raise);
+        kernel over the cache's rows with ``kv_len = cache_index + S``,
+        the query positions or, under ``slot_mask``, the query offset
+        ``cache_index`` (on CUDA both on the bf16 ``wgmma`` route; the
+        float32 routes raise);
       * S > 1 at a 0-d tensor ``cache_index`` (not read on the host):
-        the plain ``gqa_attention`` on a CPU tensor; on CUDA no kernel
-        covers it and it raises.
+        the plain ``gqa_attention``; on CUDA no kernel covers it and the
+        ``fused`` route raises.
     Returns (out, cache)."""
     B, S, _ = x.shape
     q = proj_heads(x, params["wq"])
@@ -248,9 +275,14 @@ def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
         cos, sin = rope_positions(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    qpos = None
+    if not slot_mask:
+        qpos = query_positions(positions) if q_positions is None \
+            else q_positions
+    flash = ops.pick("flash_attention", impl)
 
     if cache is None:
-        out = ops.flash_attention(q, k, v, causal=True)
+        out = flash(q, k, v, causal=True, q_positions=qpos)
     else:
         if slots is None:
             slots = slots_for(S, cache_index, x.device)
@@ -259,23 +291,24 @@ def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
         cv.index_copy_(1, slots, v.to(cv.dtype))
         if S == 1:
             if valid_len is None:
-                valid_len = decode_valid_len(slots, B)
-            out = ops.decode_attention(q[:, 0], ck, cv, valid_len)[:, None]
+                valid_len = decode_valid_len(slots, B, qpos)
+            out = ops.pick("decode_attention", impl)(
+                q[:, 0], ck, cv, valid_len)[:, None]
         elif isinstance(cache_index, int):
             if cache_index == 0:
-                out = ops.flash_attention(q, k, v, causal=True)
+                out = flash(q, k, v, causal=True, q_positions=qpos)
             else:
-                out = ops.flash_attention(q, ck, cv, causal=True,
-                                          kv_len=cache_index + S,
-                                          q_offset=cache_index)
-        elif x.is_cuda:
+                out = flash(q, ck, cv, causal=True, kv_len=cache_index + S,
+                            q_offset=cache_index, q_positions=qpos)
+        elif x.is_cuda and resolve_kernel_impl(impl) == "fused":
             raise NotImplementedError(
                 "a prompt chunk of S > 1 at a tensor cache_index has no "
                 "kernel on CUDA: pass the index as an int (ROADMAP.md)")
         else:
-            out = gqa_attention(q, ck, cv, causal=True,
-                                q_positions=slots.expand(B, S),
-                                kv_valid_len=(slots[-1] + 1).expand(B))
+            out = gqa_attention(
+                q, ck, cv, causal=True,
+                q_positions=slots.expand(B, S) if qpos is None else qpos,
+                kv_valid_len=(slots[-1] + 1).expand(B))
     wo = params["wo"]
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return y, cache
@@ -295,12 +328,12 @@ def mlp_init(gen, cfg, d_ff: Optional[int] = None, device=None):
     return p
 
 
-def mlp_apply(params, cfg, x):
+def mlp_apply(params, cfg, x, impl: str = "fused"):
     """SwiGLU through the kernel (``silu(x @ wg) * (x @ wi)``); GELU
     (tanh form, as ``jax.nn.gelu``) plain."""
     h = x @ params["wi"]
     if cfg.mlp == "swiglu":
-        h = ops.swiglu(x @ params["wg"], h)
+        h = ops.pick("swiglu", impl)(x @ params["wg"], h)
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ params["wo_mlp"]
@@ -334,7 +367,7 @@ def moe_capacity(tokens: int, cfg) -> int:
                              / m.num_experts)), 4)
 
 
-def moe_apply(params, cfg, x):
+def moe_apply(params, cfg, x, impl: str = "fused"):
     """Top-k routing with a per-expert capacity; overflow is dropped.
 
     The JAX package's dispatch: a float32 router softmax, top-k gates
@@ -363,8 +396,8 @@ def moe_apply(params, cfg, x):
     buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
     buf.index_add_(0, dst, xt.repeat_interleave(K, dim=0))
     ebuf = buf[:-1].view(E, cap, D)
-    h = ops.swiglu(torch.bmm(ebuf, params["e_wg"]),
-                   torch.bmm(ebuf, params["e_wi"]))
+    h = ops.pick("swiglu", impl)(torch.bmm(ebuf, params["e_wg"]),
+                                 torch.bmm(ebuf, params["e_wi"]))
     eout = torch.bmm(h, params["e_wo"])
     flat_out = torch.cat([eout.reshape(E * cap, D),
                           torch.zeros((1, D), dtype=x.dtype,
@@ -372,7 +405,7 @@ def moe_apply(params, cfg, x):
     w = gate_vals.reshape(T * K, 1).to(x.dtype) * keep[:, None].to(x.dtype)
     y = (flat_out[dst] * w).reshape(T, K, D).sum(dim=1)
     if "shared" in params:
-        y = y + mlp_apply(params["shared"], cfg, x).reshape(T, D)
+        y = y + mlp_apply(params["shared"], cfg, x, impl).reshape(T, D)
     frac_tokens = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0)) \
         * m.router_aux_coef

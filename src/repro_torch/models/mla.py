@@ -54,12 +54,13 @@ def mla_init(gen, cfg, device=None):
     return p
 
 
-def _queries(params, cfg, x):
+def _queries(params, cfg, x, impl):
     """(B, S, H, dn + dr) queries, through the low-rank path where the
     config has a query rank."""
     if cfg.mla.q_lora_rank:
         cq = x @ params["w_dq"]
-        cq = norm_apply(params["q_norm"], cq, "rmsnorm", cfg.norm_eps)
+        cq = norm_apply(params["q_norm"], cq, "rmsnorm", cfg.norm_eps,
+                        impl=impl)
         return proj_heads(cq, params["w_uq"])
     return proj_heads(x, params["w_uq"])
 
@@ -68,10 +69,10 @@ def _rope_pos(positions):
     return positions if positions.ndim == 2 else positions[0]
 
 
-def _latent(params, cfg, x, cos, sin):
+def _latent(params, cfg, x, cos, sin, impl):
     """The new tokens' normalised latent and rotated shared key."""
     c_kv = norm_apply(params["kv_norm"], x @ params["w_dkv"], "rmsnorm",
-                      cfg.norm_eps)
+                      cfg.norm_eps, impl=impl)
     k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], cos,
                         sin)[:, :, 0, :]
     return c_kv, k_rope
@@ -85,7 +86,8 @@ def _write(cache, c_kv, k_rope, cache_index, S):
     cache["k_rope"].index_copy_(1, rows, k_rope.to(cache["k_rope"].dtype))
 
 
-def mla_prefill(params, cfg, x, positions, cache=None, cache_index=0):
+def mla_prefill(params, cfg, x, positions, cache=None, cache_index=0,
+                impl: str = "fused"):
     """Full-sequence MLA with per-head K/V materialised from the latent.
     ``cache`` (optional) is written in place at ``cache_index``. As in
     the JAX package, attention runs over the S fresh rows only, causal
@@ -95,12 +97,12 @@ def mla_prefill(params, cfg, x, positions, cache=None, cache_index=0):
     B, S, _ = x.shape
     H = cfg.num_heads
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = _queries(params, cfg, x)
+    q = _queries(params, cfg, x, impl)
     pos = _rope_pos(positions)
     cos, sin = rope_angles(pos, dr, cfg.rope_theta)
     q_full = torch.cat([q[..., :dn], apply_rope(q[..., dn:], cos, sin)],
                        dim=-1)
-    c_kv, k_rope = _latent(params, cfg, x, cos, sin)
+    c_kv, k_rope = _latent(params, cfg, x, cos, sin, impl)
     k = torch.cat([proj_heads(c_kv, params["w_uk"]),
                    k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     v = proj_heads(c_kv, params["w_uv"])
@@ -112,7 +114,8 @@ def mla_prefill(params, cfg, x, positions, cache=None, cache_index=0):
     return y, cache
 
 
-def mla_decode(params, cfg, x, positions, cache, cache_index):
+def mla_decode(params, cfg, x, positions, cache, cache_index,
+               impl: str = "fused"):
     """Absorbed few-token MLA decode against the latent cache, which is
     written in place at ``cache_index``: scores ``(q_nope W_uk) . c_kv +
     q_rope . k_rope`` in float32 over the rows at or below each query's
@@ -121,11 +124,11 @@ def mla_decode(params, cfg, x, positions, cache, cache_index):
     m = cfg.mla
     B, S, _ = x.shape
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = _queries(params, cfg, x)
+    q = _queries(params, cfg, x, impl)
     pos = _rope_pos(positions)
     cos, sin = rope_angles(pos, dr, cfg.rope_theta)
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
-    c_new, k_rope_new = _latent(params, cfg, x, cos, sin)
+    c_new, k_rope_new = _latent(params, cfg, x, cos, sin, impl)
     _write(cache, c_new, k_rope_new, cache_index, S)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
 

@@ -70,7 +70,7 @@ def _causal_conv(x, kernel, bias, state=None):
     return y + bias.to(x.dtype), new_state
 
 
-def selective_scan(u, dt, A, B, C, D, h0=None):
+def selective_scan(u, dt, A, B, C, D, h0=None, impl: str = "fused"):
     """``y_t = C_t . h_t + D u_t``, ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t
     u_t``. u, dt: (Bt, S, E); A: (E, N); B, C: (Bt, S, N); D: (E,).
     ``h0`` (Bt, E, N) float32 is the initial state, overwritten with the
@@ -79,11 +79,11 @@ def selective_scan(u, dt, A, B, C, D, h0=None):
     if h0 is None:
         h0 = torch.zeros((Bt, E, A.shape[1]), dtype=torch.float32,
                          device=u.device)
-    y = ops.mamba_scan(u, dt, A, B, C, D, h0)
+    y = ops.pick("mamba_scan", impl)(u, dt, A, B, C, D, h0)
     return y, h0
 
 
-def mamba_apply(params, cfg, x, *, state=None):
+def mamba_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     """x: (B, S, D). ``state``: ``{"conv", "h"}`` or None; when given it
     is updated in place. Returns (y, state)."""
     _, N, R = _dims(cfg)
@@ -98,7 +98,8 @@ def mamba_apply(params, cfg, x, *, state=None):
     dt = F.softplus((dt_r @ params["dt_proj"]).float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y, h = selective_scan(xc, dt, A, Bm, Cm, params["D"],
-                          h0=None if state is None else state["h"])
+                          h0=None if state is None else state["h"],
+                          impl=impl)
     y = y * F.silu(z)
     out = y @ params["out_proj"]
     if state is None:

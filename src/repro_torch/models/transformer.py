@@ -28,7 +28,14 @@ per attention layer (flash in train/prefill, decode attention at S = 1,
 flash with a query offset for a prompt chunk at ``cache_index`` > 0);
 ``mamba_scan`` once per Mamba layer and ``mlstm_chunk`` once per mLSTM
 layer. LayerNorm, GELU, the sLSTM and MLA's attention are plain
-PyTorch. Remat has no counterpart.
+PyTorch. Remat has no counterpart. ``impl="unfused"`` runs every kernel
+call as its plain version on any device instead: the route autograd
+differentiates, which the train steps take (``training/train_loop.py``).
+
+The causal mask follows the query positions, as in the JAX package:
+M-RoPE's t axis or the (B, S) positions a caller passes. A forward given
+no positions masks by the sequence slots, which its default positions
+are.
 """
 from __future__ import annotations
 
@@ -78,39 +85,43 @@ def block_init(gen, cfg: ModelConfig, spec, device=None) -> Dict[str, Any]:
 
 def block_apply(params, cfg: ModelConfig, spec, x, *, positions,
                 cache_entry, cache_index, mode: str = "train", slots=None,
-                valid_len=None):
+                valid_len=None, q_positions=None, slot_mask: bool = False,
+                impl: str = "fused"):
     """Returns (x, cache_entry, aux); the entry, when given, is written in
     place, and aux is the MoE layer's load-balance loss (0.0 for other
     blocks). The MLA mixer runs its absorbed decode in ``decode`` mode
     and its prefill otherwise, as the JAX package dispatches. The
     residual add after the mixer is fused into the ``ln2`` norm:
-    ``(h, x) = norm(y, residual=x)``."""
+    ``(h, x) = norm(y, residual=x)``. ``slots``, ``valid_len``,
+    ``q_positions`` and ``slot_mask`` are ``layers.attn_apply``'s."""
     mixer, ffn = spec
-    h = L.norm_apply(params["ln1"], x, cfg.norm, cfg.norm_eps)
+    h = L.norm_apply(params["ln1"], x, cfg.norm, cfg.norm_eps, impl=impl)
     if mixer == "attn":
         y, entry = L.attn_apply(params["attn"], cfg, h, positions=positions,
                                 cache=cache_entry, cache_index=cache_index,
-                                slots=slots, valid_len=valid_len)
+                                slots=slots, valid_len=valid_len,
+                                q_positions=q_positions, slot_mask=slot_mask,
+                                impl=impl)
     elif mixer == "mla":
         if mode == "decode":
             y, entry = MLA.mla_decode(params["attn"], cfg, h, positions,
-                                      cache_entry, cache_index)
+                                      cache_entry, cache_index, impl=impl)
         else:
             y, entry = MLA.mla_prefill(params["attn"], cfg, h, positions,
                                        cache=cache_entry,
-                                       cache_index=cache_index)
+                                       cache_index=cache_index, impl=impl)
     else:
         y, entry = _MIXERS[mixer][1](params["mixer"], cfg, h,
-                                     state=cache_entry)
+                                     state=cache_entry, impl=impl)
     if ffn is None:
         return x + y, entry, 0.0
     h, x = L.norm_apply(params["ln2"], y, cfg.norm, cfg.norm_eps,
-                        residual=x)
+                        residual=x, impl=impl)
     aux = 0.0
     if ffn == "moe":
-        y, aux = L.moe_apply(params["ffn"], cfg, h)
+        y, aux = L.moe_apply(params["ffn"], cfg, h, impl)
     else:
-        y = L.mlp_apply(params["ffn"], cfg, h)
+        y = L.mlp_apply(params["ffn"], cfg, h, impl)
     return x + y, entry, aux
 
 
@@ -169,13 +180,17 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
-            cache_index=0, mode: str = "train", return_hidden: bool = False):
+            cache_index=0, mode: str = "train", return_hidden: bool = False,
+            impl: str = "fused"):
     """inputs: int tokens (B, S) or float embeddings (B, S, D).
     ``positions``: (B, S), or (P, B, S) with M-RoPE (default: the slots
-    ``cache_index + arange(S)`` on every axis). ``cache``: the list of
-    ``init_cache``, needed in ``prefill`` and ``decode`` and written in
-    place; ``cache_index``: the position of the first token, an int or a
-    0-d device tensor. Returns (logits (B, S, V), cache, aux[, hidden])."""
+    ``cache_index + arange(S)`` on every axis); the causal mask follows
+    them (M-RoPE's first axis). ``cache``: the list of ``init_cache``,
+    needed in ``prefill`` and ``decode`` and written in place;
+    ``cache_index``: the slot of the first token, an int or a 0-d device
+    tensor. ``impl``: ``fused`` (the kernels) or ``unfused`` (their plain
+    versions, which autograd differentiates). Returns (logits (B, S, V),
+    cache, aux[, hidden])."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     if (cache is None) != (mode == "train"):
@@ -184,8 +199,12 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
     embeds = inputs.is_floating_point()
     B, S = inputs.shape[:2]
     slots = L.slots_for(S, cache_index, inputs.device)
-    if positions is None:
+    slot_mask = positions is None
+    if slot_mask:
         positions = default_positions(cfg, B, slots)
+        qpos = None
+    else:
+        qpos = L.query_positions(positions)
     if not embeds:
         x = L.embed_apply(params["embed"], cfg, inputs, positions)
     else:
@@ -195,42 +214,48 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
             x = x + params["embed"]["pos_embedding"][pos]
     valid_len = None
     if cache is not None and S == 1:
-        valid_len = L.decode_valid_len(slots, B)
+        valid_len = L.decode_valid_len(slots, B, qpos)
     aux = 0.0
     for i, (spec, lp) in enumerate(zip(cfg.flat_pattern(),
                                        params["layers"])):
         x, _, a = block_apply(lp, cfg, spec, x, positions=positions,
                               cache_entry=None if cache is None else cache[i],
                               cache_index=cache_index, mode=mode, slots=slots,
-                              valid_len=valid_len)
+                              valid_len=valid_len, q_positions=qpos,
+                              slot_mask=slot_mask, impl=impl)
         aux = aux + a
     hidden = x
-    x = L.norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    x = L.norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps,
+                     impl=impl)
     out = (_logits(params, cfg, x), cache, _aux(aux, x.device))
     return out + (hidden,) if return_hidden else out
 
 
 def mtp_logits(params, cfg: ModelConfig, hidden, next_tokens,
-               positions=None):
+               positions=None, impl: str = "fused"):
     """DeepSeek-V3's multi-token prediction head (depth 1): predicts
     token i+2 from hidden_i (``forward(..., return_hidden=True)``) and
     the embedding of token i+1 (``next_tokens`` (B, S)), through one
     more block of the period's last kind. Returns (logits, aux)."""
     mp = params["mtp"]
     B, S, _ = hidden.shape
-    if positions is None:
+    slot_mask = positions is None
+    if slot_mask:
         positions = default_positions(cfg, B,
                                       L.slots_for(S, 0, hidden.device))
     emb = params["embed"]["embedding"][next_tokens]
     h = torch.cat([L.norm_apply(mp["norm_h"], hidden, cfg.norm,
-                                cfg.norm_eps),
-                   L.norm_apply(mp["norm_e"], emb, cfg.norm, cfg.norm_eps)],
+                                cfg.norm_eps, impl=impl),
+                   L.norm_apply(mp["norm_e"], emb, cfg.norm, cfg.norm_eps,
+                                impl=impl)],
                   dim=-1)
     h = h @ mp["proj"]
     h, _, aux = block_apply(mp["block"], cfg, cfg.period_pattern[-1], h,
                             positions=positions, cache_entry=None,
-                            cache_index=0, mode="train")
-    h = L.norm_apply(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+                            cache_index=0, mode="train", slot_mask=slot_mask,
+                            impl=impl)
+    h = L.norm_apply(params["final_norm"], h, cfg.norm, cfg.norm_eps,
+                     impl=impl)
     if cfg.tie_embeddings:
         lg = h @ params["embed"]["embedding"].T
     else:

@@ -53,7 +53,7 @@ def mlstm_init(gen, cfg, device=None):
     }
 
 
-def mlstm_scan(q, k, v, i_pre, f_pre, state=None):
+def mlstm_scan(q, k, v, i_pre, f_pre, state=None, impl: str = "fused"):
     """The stabilised exponential-gated matrix-memory recurrence. q, k, v:
     (B, S, H, dh); i_pre, f_pre: (B, S, H). ``state``: ``{"C": (B, H, dh,
     dh), "n": (B, H, dh), "m": (B, H)}`` float32, overwritten with the
@@ -65,12 +65,12 @@ def mlstm_scan(q, k, v, i_pre, f_pre, state=None):
         state = {"C": torch.zeros((B, H, dh, v.shape[-1]), **z),
                  "n": torch.zeros((B, H, dh), **z),
                  "m": torch.full((B, H), float("-inf"), **z)}
-    h = ops.mlstm_chunk(q, k, v, i_pre, f_pre, state["C"], state["n"],
-                        state["m"])
+    h = ops.pick("mlstm_chunk", impl)(q, k, v, i_pre, f_pre, state["C"],
+                                      state["n"], state["m"])
     return h, state
 
 
-def mlstm_apply(params, cfg, x, *, state=None):
+def mlstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     """x: (B, S, D). ``state``: ``{"conv", "C", "n", "m"}`` or None; when
     given it is updated in place. Returns (y, state)."""
     B, S, _ = x.shape
@@ -88,7 +88,8 @@ def mlstm_apply(params, cfg, x, *, state=None):
     i_pre = gates[..., 0] + params["i_bias"]
     f_pre = gates[..., 1] + params["f_bias"]
     h, mstate = mlstm_scan(q, k, v, i_pre, f_pre, None if state is None
-                           else {key: state[key] for key in ("C", "n", "m")})
+                           else {key: state[key] for key in ("C", "n", "m")},
+                           impl=impl)
     h = h.reshape(B, S, E).to(x.dtype)
     h = h + xc * params["ogate_scale"].to(x.dtype)          # learnable skip
     out = (h * F.silu(z)) @ params["out_proj"]
@@ -138,11 +139,12 @@ def slstm_init(gen, cfg, device=None):
     }
 
 
-def slstm_apply(params, cfg, x, *, state=None):
+def slstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     """Scalar-memory LSTM with exponential gating and per-head
     recurrence, then a GELU (tanh form) up/down projection. ``state``:
     ``{"c", "n", "m", "h"}`` each (B, D) float32, or None; when given it
-    is updated in place. Returns (y, state)."""
+    is updated in place. No kernel: ``impl`` (the mixers' common
+    signature) changes nothing. Returns (y, state)."""
     B, S, D = x.shape
     H = cfg.num_heads
     dh = D // H

@@ -10,8 +10,14 @@ Writes go to a temp file then ``os.replace`` (atomic on POSIX).
   * Leaves are stored in ``jax.tree_util.tree_flatten`` order
     (``repro_torch/tree.py``) and in the JAX package's layout: ``save``
     passes the tree through ``models.convert.to_jax`` (HWIO conv
-    weights), ``load`` through ``from_jax``. A bfloat16 leaf is written
-    and read through a ``uint16`` view, so no ``ml_dtypes`` is needed.
+    weights), ``load`` through ``from_jax``. An LM tree (a dict with
+    ``"layers"``: the parameters, or AdamW's moments and scales over
+    them) is stacked by the same two functions given its
+    ``ModelConfig`` (``cfg=``), so an LM ``(params, opt_state)`` file
+    loads in the JAX package's ``load`` and back (``AdamWState``
+    flattens in field order: count, m, v, then the 8-bit scales). A
+    bfloat16 leaf is written and read through a ``uint16`` view, so no
+    ``ml_dtypes`` is needed.
   * ``zstandard`` is optional, as in the JAX package: saves compress
     with zstd where it imports and with stdlib ``zlib`` otherwise, and
     a zstd file needs ``zstandard`` to load.
@@ -33,6 +39,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.convert import from_jax, to_jax
 from repro_torch.tree import leaves as tree_leaves
@@ -206,12 +213,14 @@ def _unpack_leaf(d) -> torch.Tensor:
 # files
 # ---------------------------------------------------------------------------
 def save(path: str, tree: Any, step: int, extra: Optional[dict] = None,
-         keep: int = 3) -> str:
+         keep: int = 3, cfg: Optional[ModelConfig] = None) -> str:
     """Save ``tree`` at <path>/step_<step>.ckpt in the JAX package's
-    layout; rotate old checkpoints."""
+    layout; rotate old checkpoints. ``cfg``: the model's config, needed
+    where the tree holds an LM tree."""
     os.makedirs(path, exist_ok=True)
     payload = packb({
-        b"leaves": [_pack_leaf(x) for x in tree_leaves(to_jax(tree))],
+        b"leaves": [_pack_leaf(x) for x in
+                    tree_leaves(to_jax(tree, cfg))],
         b"extra": json.dumps(extra or {}).encode(),
         b"step": step,
     })
@@ -252,10 +261,12 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def load(path: str, tree_like: Any, step: Optional[int] = None,
-         device: DeviceLike = None) -> Tuple[Any, int, dict]:
+         device: DeviceLike = None, cfg: Optional[ModelConfig] = None
+         ) -> Tuple[Any, int, dict]:
     """Restore into the structure of ``tree_like`` (step=None: newest),
     in the port's layout on ``device`` (CUDA unless the caller passes
-    "cpu")."""
+    "cpu"). ``cfg``: the model's config, needed where ``tree_like``
+    holds an LM tree."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -269,10 +280,11 @@ def load(path: str, tree_like: Any, step: Optional[int] = None,
         payload = _decompress(codec, f.read())
     obj = unpackb(payload)
     stored = [_unpack_leaf(d) for d in obj[b"leaves"]]
-    n = len(tree_leaves(tree_like))
+    like = to_jax(tree_like, cfg)
+    n = len(tree_leaves(like))
     if n != len(stored):
         raise ValueError(f"checkpoint has {len(stored)} leaves, expected "
                          f"{n}")
-    tree = from_jax(unflatten(tree_like, stored), device)
+    tree = from_jax(unflatten(like, stored), device, cfg)
     extra = json.loads(obj[b"extra"].decode())
     return tree, obj[b"step"], extra

@@ -46,16 +46,18 @@ def _rebuild(node, children):
     return type(node)(children)
 
 
-def map_tree(fn: Callable, tree, *rest):
+def map_tree(fn: Callable, tree, *rest, is_leaf: Callable = None):
     """``fn`` over the leaves of ``tree`` and the matching leaves of each
-    tree in ``rest`` (same structure); ``None`` subtrees stay ``None``."""
+    tree in ``rest`` (same structure); ``None`` subtrees stay ``None``.
+    A node of ``tree`` for which ``is_leaf`` holds is passed to ``fn``
+    whole, as in ``jax.tree.map``."""
     if tree is None:
         return None
-    if _is_node(tree):
+    if _is_node(tree) and not (is_leaf and is_leaf(tree)):
         kids = [_children(t) for t in (tree, *rest)]
         if any(len(k) != len(kids[0]) for k in kids):
             raise ValueError("trees differ in structure")
-        return _rebuild(tree, [map_tree(fn, *group)
+        return _rebuild(tree, [map_tree(fn, *group, is_leaf=is_leaf)
                                for group in zip(*kids)])
     return fn(tree, *rest)
 

@@ -578,6 +578,116 @@ def test_chunked_prefill_takes_the_offset_route(cuda):
                                **FA_TOL[torch.bfloat16])
 
 
+def _positions(kind, B, Sq, kv, device):
+    """int32 (B, Sq) query positions: ``zeros`` an image prompt under
+    M-RoPE (every patch at t = 0), ``grid_text`` an image then text
+    tokens, ``random`` any in [0, kv + 9], ``slots`` the chunk's own
+    slots (kv - Sq + row: the offset route's mask)."""
+    r = torch.arange(Sq, device=device, dtype=torch.int32)
+    if kind == "zeros":
+        pos = torch.zeros(Sq, dtype=torch.int32, device=device)
+    elif kind == "grid_text":
+        pos = torch.where(r < Sq // 2, 0, r - Sq // 2 + 7).to(torch.int32)
+    elif kind == "slots":
+        pos = r + (kv - Sq)
+    else:
+        g = torch.Generator(device=device).manual_seed(5)
+        return torch.randint(0, kv + 10, (B, Sq), generator=g,
+                             device=device, dtype=torch.int32)
+    return pos.expand(B, Sq).contiguous()
+
+
+@pytest.mark.parametrize("B,Sq,T,H,KH,D,kv,kind", [
+    (4, 512, 512, 28, 4, 128, 512, "zeros"),     # qwen2-vl's image prompt
+    (4, 128, 512, 28, 4, 128, 256, "zeros"),     # a chunk of it, cached
+    (2, 200, 640, 8, 2, 64, 640, "grid_text"),   # ragged Sq, D 64
+    (3, 130, 300, 9, 3, 64, 300, "random"),      # smollm's G = 3
+    (2, 256, 384, 8, 2, 128, 384, "slots"),      # = the offset route
+])
+def test_flash_wgmma_position_route_matches_plain(cuda, B, Sq, T, H, KH, D,
+                                                  kv, kind):
+    """The wgmma route with a query-position tensor: row r of sequence b
+    masks keys past q_positions[b, r] (and at or past kv_len), against
+    the plain version; a tile whose rows all sit at t = 0 still sees key
+    0. Its launches count on wgmma and as position launches. At the
+    slots it equals the offset route; the float32 route raises on other
+    positions."""
+    g = torch.Generator(device=cuda).manual_seed(37)
+    q = _randn(g, (B, Sq, H, D), cuda, torch.bfloat16)
+    k = _randn(g, (B, T, KH, D), cuda, torch.bfloat16)
+    v = _randn(g, (B, T, KH, D), cuda, torch.bfloat16)
+    pos = _positions(kind, B, Sq, kv, cuda)
+    before = dict(tflash.flash_attention.route_launches)
+    n_pos = tflash.flash_attention.position_launches
+    got = tflash.flash_attention(q, k, v, causal=True, kv_len=kv,
+                                 q_positions=pos)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.route_launches == {
+        **before, "wgmma": before["wgmma"] + 1}
+    assert tflash.flash_attention.position_launches == n_pos + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, kv_len=kv,
+                                   q_positions=pos)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **FA_TOL[torch.bfloat16])
+    if kind == "slots":
+        off = tflash.flash_attention(q, k, v, causal=True, kv_len=kv,
+                                     q_offset=kv - Sq)
+        torch.testing.assert_close(got, off, rtol=0, atol=0)
+    elif D in (64, 128):
+        with pytest.raises(ValueError, match="wgmma route only"):
+            tflash.flash_attention(q.float(), k.float(), v.float(),
+                                   kv_len=kv, q_positions=pos)
+
+
+def test_flash_position_route_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=cuda)
+    for bad in (torch.zeros(1, 8, dtype=torch.int64, device=cuda),
+                torch.zeros(1, 7, dtype=torch.int32, device=cuda),
+                torch.zeros(1, 8, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="q_positions"):
+            tflash.flash_attention(q, k, k, q_positions=bad)
+    # float32 at the slots is the same-position mask: taken
+    slots = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    out = tflash.flash_attention(q.float(), k.float(), k.float(),
+                                 q_positions=slots)
+    assert torch.isfinite(out).all()
+
+
+def test_lm_under_mrope_image_positions_matches_plain_on_cuda(cuda,
+                                                              monkeypatch):
+    """A bf16 M-RoPE LM (head dim 128) prefilled with an image grid at
+    t = 0 and decoded at t below its slot: the kernels (flash's position
+    route, decode attention at valid_len = t + 1) against the plain
+    versions, logits within the bf16 tolerance."""
+    cfg, p = _lm(cuda, dtype="bfloat16", rope="mrope",
+                 mrope_sections=(16, 24, 24), num_position_dims=3)
+    B, S = 2, 64
+    g = torch.Generator(device=cuda).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=cuda)
+    r = torch.arange(S, device=cuda)
+    pos = torch.stack([0 * r, r // 8, r % 8])[:, None].expand(3, B, S)
+    step = torch.full((3, B, 1), 8, device=cuda)
+
+    def run():
+        cache = init_cache(cfg, B, S + 1, cuda)
+        lp, cache, _ = forward(p, cfg, toks[:, :S], positions=pos,
+                               cache=cache, mode="prefill")
+        ld, _, _ = forward(p, cfg, toks[:, S:], positions=step, cache=cache,
+                           cache_index=S, mode="decode")
+        return lp.float(), ld.float()
+    ops.reset_launch_counts()
+    got = run()
+    assert ops.position_launches() == cfg.num_layers
+    assert ops.launch_counts()["decode_attention"] == cfg.num_layers
+    for name, plain in ops.PLAIN.items():
+        monkeypatch.setattr(ops, name, plain)
+    want = run()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=5e-2, rtol=5e-2)
+
+
 # ---------------------------------------------------------------------------
 # The recurrent kernels (xLSTM and Jamba slices)
 # ---------------------------------------------------------------------------

@@ -502,13 +502,13 @@ def test_greedy_lm_step_generates_jax_greedy_tokens():
                                     cache_index=6 + i, mode="decode")
 
 
-def test_mrope_mask_follows_the_sequence_not_the_t_axis():
-    """The one place the port's attention departs from the JAX
-    package's (ROADMAP.md, Queue 3): with an M-RoPE prompt whose first
-    axis is not the sequence (an image's patches, all at t = 0), the JAX
-    attention masks by t and lets every query see key 0 only; the port
-    masks by the sequence slot, as the kernels do. Where t is the slot
-    the two agree (``test_attn_apply_with_mrope_matches_jax``)."""
+def test_mrope_mask_follows_the_t_axis_as_in_jax():
+    """With an M-RoPE prompt whose first axis is not the sequence (an
+    image's patches, all at t = 0), the JAX attention masks by t and lets
+    every query see key 0 only; the port masks by the same query
+    positions and agrees at 5e-5 (a departure this test used to pin,
+    ROADMAP.md Queue 3). Where t is the slot the two agree too
+    (``test_attn_apply_with_mrope_matches_jax``)."""
     jcfg, tcfg, jp, tp = _pair("qwen2-vl-7b")
     ja = jax.tree.map(lambda a: a[0], jp["scan"]["b0"]["attn"])
     ta = tp["layers"][0]["attn"]
@@ -521,19 +521,11 @@ def test_mrope_mask_follows_the_sequence_not_the_t_axis():
                                  positions=jnp.asarray(pos))
     got, _ = layers.attn_apply(ta, tcfg, torch.from_numpy(x),
                                positions=_t(pos))
-    # row 0 sees key 0 in both; every later row differs
-    np.testing.assert_allclose(got.numpy()[:, 0], np.asarray(want)[:, 0],
-                               **MODEL_TOL)
-    diff = np.abs(got.numpy() - np.asarray(want)).max(axis=(0, 2))
-    assert (diff[1:] > 1e-3).all()
-    # the port's: the sequence-causal softmax over the rotated q and k
-    q = layers.proj_heads(torch.from_numpy(x), ta["wq"])
-    k = layers.proj_heads(torch.from_numpy(x), ta["wk"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    # every query sees key 0 only: the output is v_0's projection at
+    # every row
     v = layers.proj_heads(torch.from_numpy(x), ta["wv"])
-    cos, sin = layers.rope_positions(tcfg, _t(pos))
-    q, k = layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin)
-    out = ref.flash_attention_ref(q, k, v, causal=True)
     wo = ta["wo"]
-    torch.testing.assert_close(
-        got, out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]),
-        **MODEL_TOL)
+    only0 = v[:, :1].expand(B, S, -1, -1).reshape(B, S, -1) \
+        @ wo.reshape(-1, wo.shape[-1])
+    torch.testing.assert_close(got, only0, **MODEL_TOL)
