@@ -180,13 +180,39 @@ before the next, in bfloat16 with random weights:
     step in 2 microbatches on the card and on the CPU, metrics within
     1e-3; 6 ``diffusion_loss`` AdamW steps of the served tier-0 UNet at
     full width, batch 4, timed.
-17. The wall time and the card's line again, one JSON line listing
+17. The float32 flash routes with a query offset and query positions
+    (``float32_routes_phase``): ``tf32x3`` at qwen2-vl's chunk shape in
+    float32 (q (4,128,28,128), k/v (4,512,4,128)) at offsets 128, 256,
+    384 and at a grid-then-text chunk's positions, ``cuda_core`` at head
+    dim 32, each against its plain version (1e-4) and timed beside SDPA
+    with the explicit mask and its bound; then a float32 LM (head dims
+    128 and 32) prefilled in 4 chunks of 64 (index 0, an int index, a
+    0-d device index, explicit positions), counters zeroed just before
+    and read just after: logits within 1e-4 of the plain versions', each
+    chunk on the route, offset and position launches as expected.
+18. The distribution layer on a one-rank NCCL group over the (1, 1)
+    ("data", "model") worker mesh (``distribution_phase``; one card, and
+    NCCL refuses two ranks on one GPU): ``build_train_step`` for
+    smollm-135m at full size on one 8 x 512 batch against the unsharded
+    step under deterministic algorithms (metrics and new trees bit for
+    bit); ``build_serve_step`` for Yi-9B at full width (8 of its 48
+    layers) for a 4 x 512 prefill and 8 decode steps, counters zeroed
+    just before and read just after, against ``serve_prefill`` /
+    ``serve_decode`` (logits and cache bit for bit, the same launches
+    every step, flash on ``wgmma``); ``allgather_matmul``,
+    ``reduce_scatter_grads`` and ``run_pipeline`` on the one-rank ring
+    against dense torch; the host wall each built step adds, median of 5
+    in turns. No multi-GPU claim: no collective crosses cards.
+19. The wall time and the card's line again, one JSON line listing
     every ported kernel, with its launches by path (diffusion, offline,
-    live, lm, xlstm, jamba, lm_family, train) and, for flash attention,
+    live, lm, xlstm, jamba, lm_family, train, float32_chunks,
+    distribution) and, for flash attention,
     its routes (``tf32x3`` over one UNet forward, ``wgmma`` over one
     Yi-9B prefill, ``cuda_core`` at the UNet's inputs, ``wgmma_offset``
     over one chunked qwen2-vl prompt at the slots, ``wgmma_positions``
-    over one qwen2-vl prefill and one chunked prompt at its positions)
+    over one qwen2-vl prefill and one chunked prompt at its positions,
+    ``tf32x3_offset``, ``tf32x3_positions``, ``cuda_core_offset`` and
+    ``cuda_core_positions`` at phase 17's shapes)
     and, for the mLSTM and the selective scan, their two routes, with
     their times and launches;
     flash attention's float32 route and GroupNorm carry ``was_ms``,
@@ -323,6 +349,26 @@ TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_LR, TRAIN_SEED = 16, 8, 1e-3, 95
 LAUNCH_STEPS = 4
 DS_TRAIN_BATCH, DS_TRAIN_SEQ = 4, 32
 DIFF_TRAIN_BATCH, DIFF_TRAIN_STEPS, DIFF_TRAIN_LR = 4, 6, 1e-4
+# the float32 flash routes with a query offset and query positions:
+# (route, kind, q shape, k/v shape, q_offset or kv_len); tf32x3 at
+# qwen2-vl's chunk shape in float32, at each later chunk's offset and at
+# a grid-then-text chunk's positions; cuda_core at head dim 32; then a
+# float32 LM prefilled in chunks of F32_PATH_CHUNK at batch F32_PATH_B
+F32_CASES = (
+    ("tf32x3", "offset", (4, 128, 28, 128), (4, 512, 4, 128), 128),
+    ("tf32x3", "offset", (4, 128, 28, 128), (4, 512, 4, 128), 256),
+    ("tf32x3", "offset", (4, 128, 28, 128), (4, 512, 4, 128), 384),
+    ("tf32x3", "positions", (4, 128, 28, 128), (4, 512, 4, 128), 256),
+    ("cuda_core", "offset", (4, 128, 8, 32), (4, 512, 2, 32), 256),
+    ("cuda_core", "positions", (4, 128, 8, 32), (4, 512, 2, 32), 256),
+)
+F32_PATH_B, F32_PATH_CHUNK = 2, 64
+# the distribution layer on a one-rank NCCL group: the built train step
+# at TRAIN_ARCH's full size on one TRAIN_BATCH x TRAIN_SEQ batch; the
+# built serve steps for Yi-9B at full width, depth cut to DIST_LM_LAYERS,
+# a LM_BATCH x LM_PROMPT prefill then DIST_DECODES decode steps; host
+# walls as medians of DIST_REPS calls in turns
+DIST_LM_LAYERS, DIST_DECODES, DIST_REPS = 8, 8, 5
 
 
 def log(msg: str) -> None:
@@ -566,7 +612,8 @@ def _flash_cuda_core(torch, q, k, v, causal, kv_len):
     B, Sq, H, D = q.shape
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
              k.shape[1], H, k.shape[2], D, kv_len or k.shape[1], int(causal),
-             1.0 / math.sqrt(D), 0, torch.cuda.current_stream().cuda_stream)
+             1.0 / math.sqrt(D), 0, 0, None,
+             torch.cuda.current_stream().cuda_stream)
     if err:
         fail(f"flash_attention cuda_core: {errstr(err).decode()}")
     return out
@@ -2265,19 +2312,21 @@ def qwen_feed(torch, cfg, g, steps):
     return emb, pos, step_pos
 
 
-def _offset_case(torch, g, qs, ks, q_off):
+def _offset_case(torch, g, qs, ks, q_off, dt=None):
     """Inputs, calls, bytes and flops of one flash call with a query
     offset: the chunk's queries against the cache's first q_off + Sq
-    rows. The library call is SDPA with the offset's causal mask given
-    explicitly (a boolean mask; GQA by ``enable_gqa``)."""
+    rows, in ``dt`` (bfloat16 by default). The library call is SDPA with
+    the offset's causal mask given explicitly (a boolean mask; GQA by
+    ``enable_gqa``)."""
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ref
     F = torch.nn.functional
+    dt = dt or torch.bfloat16
     B, Sq, H, D = qs
     kv = q_off + Sq
-    q = torch.randn(qs, generator=g, device=DEV).to(torch.bfloat16)
-    k = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
-    v = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
+    q = torch.randn(qs, generator=g, device=DEV).to(dt)
+    k = torch.randn(ks, generator=g, device=DEV).to(dt)
+    v = torch.randn(ks, generator=g, device=DEV).to(dt)
     mask = torch.ones(Sq, kv, dtype=torch.bool, device=DEV).tril(q_off)
     qt, kt, vt = (q.transpose(1, 2), k[:, :kv].transpose(1, 2),
                   v[:, :kv].transpose(1, 2))
@@ -2289,11 +2338,11 @@ def _offset_case(torch, g, qs, ks, q_off):
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    attn_mask=mask,
                                                    enable_gqa=True),
-            (2 * q.numel() + 2 * B * kv * ks[2] * D) * 2,
+            (2 * q.numel() + 2 * B * kv * ks[2] * D) * q.element_size(),
             4.0 * B * H * pairs * D)
 
 
-def _position_case(torch, g, qs, ks, kv, positions):
+def _position_case(torch, g, qs, ks, kv, positions, dt=None):
     """Inputs, calls, bytes and flops of one flash call with a query
     position tensor (the recorded one): the queries against the first kv
     rows, key j visible to row r of sequence b where j <= positions[b,
@@ -2305,10 +2354,11 @@ def _position_case(torch, g, qs, ks, kv, positions):
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ref
     F = torch.nn.functional
+    dt = dt or torch.bfloat16
     B, Sq, H, D = qs
-    q = torch.randn(qs, generator=g, device=DEV).to(torch.bfloat16)
-    k = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
-    v = torch.randn(ks, generator=g, device=DEV).to(torch.bfloat16)
+    q = torch.randn(qs, generator=g, device=DEV).to(dt)
+    k = torch.randn(ks, generator=g, device=DEV).to(dt)
+    v = torch.randn(ks, generator=g, device=DEV).to(dt)
     pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
     mask = (torch.arange(kv, device=DEV)[None, None, :]
             <= pos[:, :, None])[:, None]
@@ -2323,7 +2373,8 @@ def _position_case(torch, g, qs, ks, kv, positions):
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    attn_mask=mask,
                                                    enable_gqa=True),
-            (2 * q.numel() + 2 * kv_rows * ks[2] * D) * 2 + 4 * B * Sq,
+            (2 * q.numel() + 2 * kv_rows * ks[2] * D) * q.element_size()
+            + 4 * B * Sq,
             4.0 * H * pairs * D)
 
 
@@ -3008,6 +3059,397 @@ def training_phase(torch, np, full_cfg):
     return counts, details
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the float32 flash routes with a query offset and positions
+# ---------------------------------------------------------------------------
+def _grid_text(torch, B, Sq):
+    """int32 (B, Sq) positions of a grid-then-text prompt chunk: the
+    first half image patches at t = 0, then text at 7, 8, ..."""
+    r = torch.arange(Sq, device=DEV, dtype=torch.int32)
+    pos = torch.where(r < Sq // 2, 0, r - Sq // 2 + 7).to(torch.int32)
+    return pos.expand(B, Sq).contiguous()
+
+
+def check_float32_routes(torch):
+    """The tf32x3 and cuda_core routes with a query offset and with query
+    positions (F32_CASES) against their plain versions at the float32
+    flash tolerance, timed beside SDPA with the explicit mask and their
+    bound (tf32x3's operations as 3xTF32 products). Returns the rows."""
+    g = torch.Generator(device=DEV).manual_seed(93)
+    rows = []
+    for way, kind, qs, ks, at in F32_CASES:
+        if kind == "offset":
+            case = _offset_case(torch, g, qs, ks, at, torch.float32)
+            label = f"q_offset {at} kv_len {at + qs[1]}"
+        else:
+            pos = _grid_text(torch, qs[0], qs[1]).tolist()
+            case = _position_case(torch, g, qs, ks, at, pos, torch.float32)
+            label = f"kv_len {at} grid-then-text positions"
+        kernel, plain, library, nbytes, flops = case
+        from repro_torch.kernels import ops
+        ops.reset_launch_counts()
+        got = kernel()
+        torch.cuda.synchronize()
+        routes = ops.route_counts()
+        if routes[way] != 1:
+            fail(f"float32 {kind} q {qs}: took {routes}, not {way}")
+        err, tol = _hold(torch, "flash_attention", got, plain(), "float32")
+        b_ms, b_by = bound_ms(nbytes, (TF32_PRODUCTS if way == "tf32x3"
+                                       else 1) * flops,
+                              "tf32" if way == "tf32x3" else "float32")
+        row = {"route": way, "kind": kind, "q": qs, "k": ks, "at": at,
+               "dtype": "float32", "max_abs_err": err,
+               "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
+               "library_ms": cuda_ms(torch, library), "bound_ms": b_ms,
+               "bound_by": b_by}
+        rows.append(row)
+        _report("flash_attention", row, f"{way} {kind} route q {qs} k/v {ks} "
+                f"{label} float32 (tol {tol})")
+    return rows
+
+
+def _f32_lm(torch, head_dim):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(reduced_config(LM_ARCH), num_heads=8,
+                              num_kv_heads=2, d_model=256, head_dim=head_dim,
+                              d_ff=512)
+    return cfg, init_params(cfg, seed=97, device=DEV)
+
+
+def float32_chunks(torch, cfg, params):
+    """A float32 LM prompt of 4 x F32_PATH_CHUNK tokens prefilled in
+    chunks: at 0, at an int cache_index (the offset), at a 0-d device
+    cache_index (positions min(slot, last slot), nothing read on the
+    host) and with explicit positions (a grid at t = 0, then text).
+    Returns the chunks' last-position logits."""
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.transformer import forward
+    C, B = F32_PATH_CHUNK, F32_PATH_B
+    g = torch.Generator(device=DEV).manual_seed(98)
+    toks = torch.randint(0, cfg.vocab_size, (B, 4 * C), generator=g,
+                         device=DEV)
+    pos = (_grid_text(torch, B, C) + 3 * C).long()
+    cache = init_cache(cfg, B, 4 * C, DEV)
+    out = []
+    with torch.no_grad():
+        for i, (index, p) in enumerate((
+                (0, None), (C, None),
+                (torch.tensor(2 * C, device=DEV), None), (3 * C, pos))):
+            lg, cache, _ = forward(params, cfg, toks[:, i * C:(i + 1) * C],
+                                   positions=p, cache=cache,
+                                   cache_index=index, mode="prefill")
+            out.append(lg[:, -1].float())
+    return torch.stack(out)
+
+
+def float32_routes_phase(torch):
+    """The float32 flash routes' query offset and positions: the kernels
+    against their plain versions at F32_CASES, then a float32 LM at head
+    dims 128 (tf32x3) and 32 (cuda_core) prefilled in chunks
+    (``float32_chunks``) with every launch counter zeroed just before and
+    read just after: the logits against the plain versions (relative
+    LM_FP32_REL), each chunk's flash launch on the route, offset and
+    position launches as expected. Returns the routes' kernel-line
+    entries, the launches and the details."""
+    from repro_torch.kernels import ops
+    rows = check_float32_routes(torch)
+    counts, details = None, {"rows": rows}
+    for head_dim, way in ((128, "tf32x3"), (32, "cuda_core")):
+        cfg, params = _f32_lm(torch, head_dim)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = float32_chunks(torch, cfg, params)
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        off, at_pos = ops.offset_launches(way), ops.position_launches(way)
+        routes = ops.route_counts()
+        with plain_ops():
+            want = float32_chunks(torch, cfg, params)
+        err = rel_diff(got, want)
+        L = cfg.num_layers
+        log(f"float32 chunks head dim {head_dim}: 4 chunks of "
+            f"{F32_PATH_CHUNK} (index 0, int, 0-d tensor, positions) "
+            f"vs plain max|diff|/max|logit| {err:.3e} (tolerance "
+            f"{LM_FP32_REL}); flash by route {routes}, offset {off} "
+            f"(expected {L}), positions {at_pos} (expected {2 * L})")
+        if routes[way] != 4 * L or off != L or at_pos != 2 * L \
+                or not torch.isfinite(got).all() or err > LM_FP32_REL:
+            fail(f"float32 chunks head dim {head_dim}: routes {routes}, "
+                 f"offset {off}, positions {at_pos}, rel diff {err:.3e}")
+        details[way] = {"rel_diff": err, "offset_launches": off,
+                        "position_launches": at_pos, "flash_routes": routes}
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+        del params
+    entries = {}
+    for way in ("tf32x3", "cuda_core"):
+        for kind in ("offset", "positions"):
+            sel = [r for r in rows if r["route"] == way and r["kind"] == kind]
+            src = "flash_attention_tf32.cu" if way == "tf32x3" \
+                else "flash_attention.cu"
+            entries[f"{way}_{kind}"] = {
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "max_abs_err": max(r["max_abs_err"] for r in sel),
+                **{key: sum(r[key] for r in sel)
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                           for r in sel) else "operations",
+                "launches": details[way]["offset_launches" if kind == "offset"
+                                         else "position_launches"],
+                "per": f"{len(sel)} float32 call(s) at "
+                       f"{[(r['q'], r['k'], r['at']) for r in sel]}"}
+    return entries, counts, details
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the distribution layer on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _wall_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _paired_medians(torch, plain, built, reps=DIST_REPS):
+    """Median host walls (ms) of two step calls taken in turns."""
+    a, b = [], []
+    for _ in range(reps):
+        a.append(_wall_ms(torch, plain)[0])
+        b.append(_wall_ms(torch, built)[0])
+    return sorted(a)[reps // 2], sorted(b)[reps // 2]
+
+
+def dist_train(torch, np, mesh):
+    """``build_train_step`` for smollm-135m at full size on one 8 x 512
+    batch against the unsharded ``make_train_step`` step, deterministic
+    algorithms on: metrics and new trees bit for bit; the host walls of
+    both, median of DIST_REPS in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.sharding import distribute, full
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(opt=OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                                           total_steps=10))
+    params = init_params(cfg, seed=TRAIN_SEED, device=DEV)
+    opt_init, step = make_train_step(cfg, tcfg)
+    opt = opt_init(params)
+    batch = launch_train.make_batch(cfg, np.random.default_rng(TRAIN_SEED),
+                                    TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, 0,
+                                    DEV)
+    built, (ps, os_, _), specs = steps.build_train_step(cfg, mesh, tcfg)
+    dp = distribute(params, steps.named_safe(mesh, specs["params"], ps))
+    do = distribute(opt, steps.named_safe(mesh, specs["opt"], os_))
+    db = distribute(batch, steps.named_safe(mesh, specs["batch"], batch))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = step(params, opt, batch)
+        got = built(dp, do, db)
+        plain_ms, built_ms = _paired_medians(
+            torch, lambda: step(params, opt, batch),
+            lambda: built(dp, do, db))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g_p, g_o, g_m = full(got[0]), full(got[1]), full(got[2])
+    metrics_equal = all(torch.equal(g_m[k], want[2][k]) for k in want[2])
+    trees_equal = _bitwise_equal(torch, (g_p, g_o), want[:2])
+    log(f"distribution train {cfg.name} at full size, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} on the (1, 1) mesh: metrics equal the unsharded "
+        f"step's bit for bit {metrics_equal}, new trees {trees_equal} "
+        f"(loss {g_m['loss'].item():.6f}); host wall median of {DIST_REPS} "
+        f"in turns: unsharded {plain_ms:.3f} ms, built {built_ms:.3f} ms "
+        f"(+{built_ms - plain_ms:.3f} ms)")
+    if not (metrics_equal and trees_equal):
+        fail("distribution train: the built step differs from the "
+             "unsharded one")
+    return {"metrics_equal": metrics_equal, "trees_equal": trees_equal,
+            "plain_ms": plain_ms, "built_ms": built_ms,
+            "added_ms": built_ms - plain_ms}
+
+
+def dist_serve(torch, mesh):
+    """``build_serve_step`` for Yi-9B at full width (DIST_LM_LAYERS of its
+    layers) against ``serve_prefill`` / ``serve_decode``: a 4 x 512
+    prefill then DIST_DECODES decode steps, logits bit for bit, the
+    launches of each step equal (every counter zeroed just before the
+    built steps and read just after: the phase's path launches), flash on
+    wgmma; the host walls of a prefill and of a decode step, median of
+    DIST_REPS in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.sharding import distribute, full
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=DIST_LM_LAYERS)
+    params = init_params(cfg, seed=99, device=DEV)
+    B, S = LM_BATCH, LM_PROMPT
+    pre = ShapeConfig("dist_prefill", "prefill", S + DIST_DECODES, B)
+    T = steps.cache_len(pre)
+    dec = ShapeConfig("dist_decode", "decode", T - 1, B)
+    pstep, pargs, specs = steps.build_serve_step(cfg, mesh, pre)
+    dstep, _, _ = steps.build_serve_step(cfg, mesh, dec)
+    g = torch.Generator(device=DEV).manual_seed(99)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + DIST_DECODES),
+                         generator=g, device=DEV, dtype=torch.int32)
+
+    def plain_run():
+        cache = init_cache(cfg, B, T, DEV)
+        per, out = [], []
+        for i in range(DIST_DECODES + 1):
+            ops.reset_launch_counts()
+            if i == 0:
+                lg, cache = steps.serve_prefill(params, cfg, cache,
+                                                toks[:, :S])
+            else:
+                lg, cache = steps.serve_decode(
+                    params, cfg, cache, toks[:, S + i - 1:S + i], S + i - 1)
+            torch.cuda.synchronize()
+            per.append(ops.launch_counts())
+            out.append(lg)
+        return out, per, cache
+
+    dp = distribute(params, steps.named_safe(mesh, specs["params"],
+                                             pargs[0]))
+    c_sh = steps.named_safe(mesh, specs["cache"], pargs[1])
+    b_sh = steps.named_safe(mesh, specs["batch"], {"inputs": toks[:, :S]})
+
+    def batch(i):
+        return distribute({"inputs": toks[:, :S] if i == 0
+                           else toks[:, S + i - 1:S + i]}, b_sh)
+
+    def built_run():
+        cache = distribute(init_cache(cfg, B, T, DEV), c_sh)
+        per, out = [], []
+        total = None
+        for i in range(DIST_DECODES + 1):
+            before = ops.launch_counts()
+            if i == 0:
+                lg, cache = pstep(dp, cache, batch(0))
+            else:
+                lg, cache = dstep(dp, cache, batch(i), S + i - 1)
+            torch.cuda.synchronize()
+            now = ops.launch_counts()
+            per.append({k: now[k] - before[k] for k in now})
+            total = now
+            out.append(lg)
+        return out, per, cache, total
+
+    want, want_per, want_cache = plain_run()
+    routes_before = ops.route_counts()
+    ops.reset_launch_counts()
+    got, got_per, got_cache, counts = built_run()
+    routes = ops.route_counts()
+    same = [torch.equal(full(a), b) for a, b in zip(got, want)]
+    cache_same = _bitwise_equal(torch, full(got_cache), want_cache)
+    c0, c1 = init_cache(cfg, B, T, DEV), distribute(init_cache(cfg, B, T,
+                                                               DEV), c_sh)
+    pre_ms = _paired_medians(
+        torch, lambda: steps.serve_prefill(params, cfg, c0, toks[:, :S]),
+        lambda: pstep(dp, c1, batch(0)))
+    dec_ms = _paired_medians(
+        torch, lambda: steps.serve_decode(params, cfg, c0, toks[:, S:S + 1],
+                                          S),
+        lambda: dstep(dp, c1, batch(1), S))
+    del routes_before
+    log(f"distribution serve {cfg.name} at full width ({DIST_LM_LAYERS} "
+        f"layers, bf16) on the (1, 1) mesh: prefill {B} x {S} and "
+        f"{DIST_DECODES} decode steps; logits equal bit for bit {same}, "
+        f"cache {cache_same}; launches per step equal {got_per == want_per} "
+        f"(prefill {got_per[0]}, decode {got_per[1]}); flash by route "
+        f"{routes}; host wall median of {DIST_REPS} in turns: prefill "
+        f"{pre_ms[0]:.3f} -> {pre_ms[1]:.3f} ms, decode {dec_ms[0]:.3f} -> "
+        f"{dec_ms[1]:.3f} ms")
+    if not all(same) or not cache_same or got_per != want_per \
+            or routes["wgmma"] != cfg.num_layers or any(
+                counts[k] == 0 for k in ("flash_attention",
+                                         "decode_attention", "fused_rmsnorm",
+                                         "swiglu")):
+        fail("distribution serve: the built steps differ from the "
+             "unsharded ones")
+    return counts, {"logits_equal": same, "cache_equal": cache_same,
+                    "launches_per_step": got_per, "flash_routes": routes,
+                    "prefill_ms": pre_ms, "decode_ms": dec_ms}
+
+
+def dist_collectives(torch, mesh):
+    """``allgather_matmul``, ``reduce_scatter_grads`` and ``run_pipeline``
+    on the one-rank ring against dense torch at smollm's MLP shapes."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.parallel.collectives import (allgather_matmul,
+                                                  reduce_scatter_grads)
+    from repro_torch.parallel.pipeline import run_pipeline
+    g = torch.Generator(device=DEV).manual_seed(100)
+    x = torch.randn(TRAIN_BATCH * TRAIN_SEQ, 576, generator=g, device=DEV)
+    w = torch.randn(576, 1536, generator=g, device=DEV) / 24
+    agmm = allgather_matmul(x, w, mesh=mesh, axis="model")
+    e1 = (agmm - x @ w).abs().max().item()
+    rs = reduce_scatter_grads({"w": w}, mesh=mesh, axis="data")
+    e2 = (rs["w"] - w).abs().max().item()
+    stage = init_device_mesh(DEV, (1,), mesh_dim_names=("stage",))
+    W = torch.randn(1, 576, 576, generator=g, device=DEV) / 24
+    xs = torch.randn(4, 8, 576, generator=g, device=DEV)
+    pipe = run_pipeline(lambda p, v: torch.tanh(v @ p), W, xs, mesh=stage)
+    e3 = (pipe - torch.tanh(xs @ W[0])).abs().max().item()
+    ms = {"allgather_matmul": cuda_ms(torch, lambda: allgather_matmul(
+              x, w, mesh=mesh, axis="model")),
+          "dense_matmul": cuda_ms(torch, lambda: x @ w)}
+    log(f"distribution collectives on the one-rank ring: allgather_matmul "
+        f"vs x @ w max|diff| {e1:.3e} ({ms['allgather_matmul']:.4f} ms vs "
+        f"{ms['dense_matmul']:.4f} ms), reduce_scatter_grads vs g "
+        f"{e2:.3e}, run_pipeline (1 stage, 4 microbatches) vs dense "
+        f"{e3:.3e}")
+    if max(e1, e2, e3) > 1e-5:
+        fail("distribution collectives differ from dense")
+    return {"allgather_matmul_err": e1, "reduce_scatter_err": e2,
+            "pipeline_err": e3, **ms}
+
+
+def distribution_phase(torch, np):
+    """The distribution layer on a one-rank NCCL group (the card has one
+    GPU; NCCL refuses two ranks on one) over the (1, 1) ("data",
+    "model") worker mesh: the built train step (``dist_train``), the
+    built serve steps (``dist_serve``, whose launches are the phase's
+    path launches) and the collectives (``dist_collectives``). Returns
+    the launches and the details."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_worker_mesh
+    t0 = time.perf_counter()
+    # gloo only where the phase is rehearsed on the CPU (DEV = "cpu")
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_worker_mesh(1, device_type=DEV)
+        details = {"mesh": [list(mesh.mesh_dim_names),
+                            list(mesh.mesh.shape)]}
+        details["train"] = dist_train(torch, np, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, details["serve"] = dist_serve(torch, mesh)
+        details["collectives"] = dist_collectives(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    details["wall_s"] = time.perf_counter() - t0
+    log(f"distribution phase wall {details['wall_s']:.1f} s")
+    return counts, details
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -3073,6 +3515,9 @@ def main(argv=None) -> int:
     family_entries, family_counts, details["lm_family"] = lm_family_phase(
         torch, np)
     train_counts, details["training"] = training_phase(torch, np, full_cfg)
+    f32_entries, f32_counts, details["float32_routes"] = \
+        float32_routes_phase(torch)
+    dist_counts, details["distribution"] = distribution_phase(torch, np)
     # flash attention's three routes: the diffusion path's float32 calls
     # on tf32x3, the LM paths' bf16 calls on wgmma; cuda_core (no path's
     # head dim) timed at the UNet's inputs as the float32 route's earlier
@@ -3084,7 +3529,11 @@ def main(argv=None) -> int:
               "qwen": details["lm_family"][QWEN_ARCH]["slice"]["flash_routes"],
               **{key: details["lm_family"][QWEN_ARCH][key]["flash_routes"]
                  for key in ("chunked", "chunked_slots")},
-              "cascade": details["lm_family"]["lm_cascade"]["flash_routes"]}
+              "cascade": details["lm_family"]["lm_cascade"]["flash_routes"],
+              **{f"float32_{way}": details["float32_routes"][way][
+                  "flash_routes"] for way in ("tf32x3", "cuda_core")},
+              "distribution": details["distribution"]["serve"][
+                  "flash_routes"]}
     lm_flash = lm_entries.pop("flash_attention")
     fa_entry["routes"] = {}
     for way, e in (("tf32x3", fa_entry), ("wgmma", lm_flash)):
@@ -3103,6 +3552,8 @@ def main(argv=None) -> int:
     # the wgmma route with a query offset and with query positions (their
     # launches are also among wgmma's)
     fa_entry["routes"].update(family_entries)
+    # the float32 routes with a query offset and with query positions
+    fa_entry["routes"].update(f32_entries)
     for e in rec_entries:      # the recurrences' launches by route
         for way, r in e["routes"].items():
             r["launches"] = sum(
@@ -3117,7 +3568,9 @@ def main(argv=None) -> int:
                    "xlstm": rec_counts[REC_ARCHS[0]][e["name"]],
                    "jamba": rec_counts[REC_ARCHS[1]][e["name"]],
                    "lm_family": family_counts[e["name"]],
-                   "train": train_counts[e["name"]]}
+                   "train": train_counts[e["name"]],
+                   "float32_chunks": f32_counts[e["name"]],
+                   "distribution": dist_counts[e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         kernels.append({k: e[k] for k in (

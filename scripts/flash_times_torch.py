@@ -6,6 +6,11 @@ first on PYTHONPATH: Yi-9B's causal prefill (q (4,512,32,128), k/v
 query offset of 128, 256 and 384 (q (4,128,28,128), k/v (4,512,4,128)),
 and, where the checkout's kernel takes query positions, qwen2-vl's
 prefill at an image grid's t = 0 (q (4,512,28,128), k/v (4,512,4,128)).
+The float32 ``tf32x3`` route at the diffusion path's non-causal call
+(the UNet's q (B,256,4,128), k/v (B,264,4,128) at B = 1 and 8), and,
+where the checkout's float32 routes take a query offset and positions,
+qwen2-vl's chunk shape in float32 at offsets 128/256/384 and at a
+grid-then-text chunk's positions.
 Each time is device time: ``--iters`` launches queued behind a spin
 kernel long enough for the host to queue them all, so they run back to
 back, between one pair of CUDA events, divided by the count (inputs stay
@@ -40,9 +45,15 @@ def main(argv=None):
     def rnd(shape):
         return torch.randn(shape, generator=g,
                            device="cuda").to(torch.bfloat16)
+    def rnd32(shape):
+        return torch.randn(shape, generator=g, device="cuda")
     cases = {"yi_prefill_causal": (rnd((4, 512, 32, 128)),
                                    rnd((4, 512, 4, 128)),
                                    rnd((4, 512, 4, 128)), {})}
+    for b in (1, 8):
+        cases[f"unet_tf32x3_b{b}"] = (
+            rnd32((b, 256, 4, 128)), rnd32((b, 264, 4, 128)),
+            rnd32((b, 264, 4, 128)), {"causal": False})
     kv = (rnd((4, 512, 4, 128)), rnd((4, 512, 4, 128)))
     for off in (128, 256, 384):
         cases[f"qwen_chunk_offset_{off}"] = (
@@ -54,10 +65,22 @@ def main(argv=None):
             rnd((4, 512, 28, 128)), *kv,
             {"q_positions": torch.zeros((4, 512), dtype=torch.int32,
                                         device="cuda")})
+    if "offset_route_launches" in vars(tflash.flash_attention):
+        kv32 = (rnd32((4, 512, 4, 128)), rnd32((4, 512, 4, 128)))
+        for off in (128, 256, 384):
+            cases[f"qwen_chunk_offset_{off}_tf32x3"] = (
+                rnd32((4, 128, 28, 128)), *kv32,
+                {"kv_len": off + 128, "q_offset": off})
+        r = torch.arange(128, dtype=torch.int32, device="cuda")
+        grid_text = torch.where(r < 64, 0, r - 57).to(torch.int32)
+        cases["qwen_chunk_grid_text_tf32x3"] = (
+            rnd32((4, 128, 28, 128)), *kv32,
+            {"kv_len": 256,
+             "q_positions": grid_text.expand(4, 128).contiguous()})
     out = {}
     for name, (q, k, v, kw) in cases.items():
         def call():
-            return tflash.flash_attention(q, k, v, causal=True, **kw)
+            return tflash.flash_attention(q, k, v, **{"causal": True, **kw})
         for _ in range(10):
             call()
         torch.cuda.synchronize()

@@ -17,7 +17,9 @@ _SMS: Dict[int, int] = {}
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means CUDA; raises when CUDA is absent. An explicit
-    ``"cpu"`` runs the plain PyTorch versions of every kernel."""
+    ``"cpu"`` runs the plain PyTorch versions of every kernel; ``"meta"``
+    gives shapes and dtypes only (the step builders' argument shapes,
+    ``launch/steps.py``), with no data and nothing computed."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -30,7 +32,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(f"device {dev} requested but CUDA is absent")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
 

@@ -5,7 +5,13 @@
 // attention with fp32 scores and accumulator, optional same-position
 // causal mask, GQA (query head h reads kv head h / G), a kv_len bound
 // that masks K/V rows at or past it, the denominator clamped at 1e-30,
-// output in the input dtype (float32 or bfloat16).
+// output in the input dtype (float32 or bfloat16). A query offset q_off
+// places query row r at position q_off + r (a prompt chunk written into a
+// KV cache at cache_index = q_off), and a query-position tensor qpos (int32
+// (B, Sq), where given) at qpos[b, r] (the JAX package's mask: M-RoPE's t
+// axis or the positions a forward is given); the mask is then col > the
+// row's position. With qpos a block reads every key tile below kv_len
+// (a plain mask: no served path takes this route).
 //
 // Design. One block per (query tile of BQ rows, batch*head). The TPU
 // kernel's sequential KV grid axis becomes a loop inside the block: each
@@ -64,7 +70,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-              int H, int KH, int kv_len, int causal, float scale) {
+              int H, int KH, int kv_len, int causal, int q_off,
+              const int* __restrict__ qpos, float scale) {
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
@@ -105,7 +112,16 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // causal: key tiles entirely above this query tile's diagonal are skipped
-  const int k_end = causal ? min(kv_len, q0 + BQ) : kv_len;
+  const int k_end =
+      causal && !qpos ? min(kv_len, q_off + q0 + BQ) : kv_len;
+  // the positions of the thread's rows, for the causal mask
+  int pos[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + ty * 4 + i;
+    pos[i] = qpos ? __ldg(qpos + (size_t)b * Sq + min(qr, Sq - 1))
+                  : q_off + qr;
+  }
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the last tile's K, V and P reads are done
     for (int i = threadIdx.x; i < BK * D; i += THREADS) {
@@ -137,13 +153,12 @@ __global__ void __launch_bounds__(THREADS)
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
       float mloc = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (kc >= kv_len || (causal && kc > qr)) x = NEG_INF;
+        if (kc >= kv_len || (causal && kc > pos[i])) x = NEG_INF;
         s[i][j] = x;
         mloc = fmaxf(mloc, x);
       }
@@ -196,8 +211,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KH, int kv_len, int causal, float scale,
-           cudaStream_t stream) {
+           int Sq, int Sk, int H, int KH, int kv_len, int causal, int q_off,
+           const int* qpos, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   static unsigned int smem_set = 0;
   cudaError_t err =
@@ -207,27 +222,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd<T, D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KH, kv_len,
-      causal, scale);
+      causal, q_off, qpos, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Sk, int H, int KH, int D, int kv_len, int causal,
-               float scale, cudaStream_t stream) {
+               int q_off, const int* qpos, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                           scale, stream);
+                           q_off, qpos, scale, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                           scale, stream);
+                           q_off, qpos, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                           scale, stream);
+                           q_off, qpos, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                            scale, stream);
+                           q_off, qpos, scale, stream);
     default:
       return -1;
   }
@@ -239,18 +254,23 @@ extern "C" {
 
 // q: (B, Sq, H, D); k, v: (B, Sk, KH, D); o: (B, Sq, H, D); all
 // contiguous, on the device of `stream`. dtype 0 = float32, 1 = bfloat16.
+// `q_off` >= 0 is the absolute position of query row 0 (the causal mask is
+// col > q_off + row); `qpos`, where not null, int32 (B, Sq) on the device,
+// each query row's position instead (col > qpos[b, row]).
 // Returns 0, a cudaError_t, or -1 for an unsupported D / dtype.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, int B, int Sq, int Sk, int H, int KH,
                             int D, int kv_len, int causal, float scale,
-                            int dtype, void* stream) {
+                            int dtype, int q_off, const void* qpos,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qp = static_cast<const int*>(qpos);
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, o, B, Sq, Sk, H, KH, D, kv_len, causal,
-                             scale, s);
+                             q_off, qp, scale, s);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KH, D, kv_len,
-                                     causal, scale, s);
+                                     causal, q_off, qp, scale, s);
   return -1;
 }
 

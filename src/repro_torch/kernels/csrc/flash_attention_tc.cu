@@ -85,6 +85,7 @@
 #include <string.h>
 
 #include "common.cuh"
+#include "tile_ends.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -251,21 +252,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// ends[b * n_qt + t] = 1 + the largest position among query rows
-// t * BQ .. t * BQ + BQ - 1 (those below Sq) of sequence b, at least 1:
-// one warp a query tile, 4 rows a lane
-__global__ void tile_ends(const int* __restrict__ qpos, int* __restrict__ ends,
-                          int B, int Sq, int n_qt) {
-  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (w >= B * n_qt) return;  // w is the same for the whole warp
-  const int b = w / n_qt, q0 = (w % n_qt) * BQ;
-  int m = 0;
-  for (int r = q0 + (threadIdx.x & 31); r < min(q0 + BQ, Sq); r += 32)
-    m = max(m, __ldg(qpos + (size_t)b * Sq + r));
-  m = __reduce_max_sync(0xffffffffu, m);
-  if ((threadIdx.x & 31) == 0) ends[w] = m + 1;
 }
 
 // a persistent block walks query tiles (batch, head, 128 rows); see the
@@ -585,9 +571,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return -2;
   const int n_qt = (Sq + BQ - 1) / BQ, items = B * H * n_qt;
   if (pos) {
-    tile_ends<<<(B * n_qt + 3) / 4, 128, 0, stream>>>(qpos, ends, B, Sq,
-                                                       n_qt);
-    err = cudaGetLastError();
+    err = launch_tile_ends(qpos, ends, B, Sq, BQ, stream);
     if (err != cudaSuccess) return (int)err;
   }
   auto kernel = pos ? flash_fwd_tc<D, true> : flash_fwd_tc<D, false>;

@@ -13,6 +13,19 @@
 // it, GQA (query head h reads KV head h / G), online softmax in fp32 with
 // an fp32 accumulator, output acc / max(l, 1e-30) in float32.
 //
+// Query positions. The causal mask compares a key's index with its
+// query row's position: by default the row itself (MASK_SAME, the TPU
+// kernel's mask and every diffusion call's code, as it was); row + q_off
+// with a query offset (MASK_OFFSET: a prompt chunk written into a KV cache
+// at cache_index = q_off, kv_len = q_off + Sq); or qpos[b, row] with a
+// query-position tensor (MASK_POS: int32 (B, Sq), M-RoPE's t axis or the
+// positions a forward is given, the JAX package's mask). Each is its own
+// instantiation, so the diffusion path's code is unchanged. Under
+// MASK_POS a block's key end is its rows' largest position + 1, from the
+// tile_ends pre-pass (tile_ends.cuh, shared with the bf16 kernel), and a
+// warp's is its own 16 rows' (a shuffle reduction), so a row at t = 0 reads
+// one key tile, not the cache.
+//
 // Numerics. A tensor core reads a float32 register as TF32 (10 bits of
 // mantissa) by dropping the low bits. Each operand x is split as hi =
 // tf32(x), lo = tf32(x - hi), both rounded explicitly to nearest (the
@@ -95,6 +108,7 @@
 
 #include "common.cuh"
 #include "tf32x3.cuh"
+#include "tile_ends.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -103,6 +117,8 @@ constexpr int WARPS = 8;                   // consumer warps
 constexpr int THREADS = (WARPS + 1) * 32;  // + the producer warp
 constexpr int ATOM = 32;  // fp32 columns in a 128-byte swizzle row
 constexpr float LOG2E = 1.4426950408889634f;
+// the causal mask's query positions (see the note above)
+constexpr int MASK_SAME = 0, MASK_OFFSET = 1, MASK_POS = 2;
 
 template <int D, int KW>
 struct Cfg {
@@ -174,14 +190,17 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[N][4],
     if (live[n]) mma_tf32(d[n], ah, bh[n][0], bh[n][1]);
 }
 
-// a block takes BQ query rows of one (batch, head); see the note above
-template <int D, int KW>
+// a block takes BQ query rows of one (batch, head); see the note above.
+// MASK_OFFSET: rows at q_off + row; MASK_POS: rows at qpos[b, row], the
+// block's key end from `ends` (both unused under MASK_SAME)
+template <int D, int KW, int MASK>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_tf32(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    float* __restrict__ o, int Sq, int H, int KH, int kv_len,
-                   int causal, float scale_log2) {
+                   int causal, int q_off, const int* __restrict__ qpos,
+                   const int* __restrict__ ends, float scale_log2) {
   using C = Cfg<D, KW>;
   constexpr int BQ = C::BQ, BK = C::BK, NST = C::NST, QW = C::QW;
   extern __shared__ unsigned char smem_raw[];
@@ -194,9 +213,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto empty = [&](int s) { return bar + 8 * (1 + 2 * NST + s); };
 
   const int n_qt = (Sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qt, q0 = (blockIdx.x % n_qt) * BQ;
+  const int bh = blockIdx.x / n_qt, qt = blockIdx.x % n_qt, q0 = qt * BQ;
   const int b = bh / H, h = bh % H;
-  const int k_end = causal ? min(kv_len, q0 + BQ) : kv_len;
+  // the position of row 0 of the block under MASK_SAME and MASK_OFFSET
+  const int p0 = MASK == MASK_OFFSET ? q_off + q0 : q0;
+  int k_end = causal ? min(kv_len, p0 + BQ) : kv_len;
+  if constexpr (MASK == MASK_POS)
+    k_end = causal ? min(kv_len, __ldg(ends + b * n_qt + qt)) : kv_len;
   const int nk = (k_end + BK - 1) / BK;
   const int tid = threadIdx.x;
 
@@ -241,9 +264,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int qw = warp % QW, kw = warp / QW;
   const int r0 = qw * 16 + g;  // tile row of c0, c1; r0 + 8 of c2, c3
-  const int row_lo = q0 + r0, row_hi = row_lo + 8;
+  // the positions of the thread's two rows, for the causal mask
+  int row_lo = p0 + r0, row_hi = row_lo + 8;
   // the warp's live keys end here: 8-key blocks from it on are skipped
-  const int w_end = causal ? min(kv_len, q0 + qw * 16 + 16) : kv_len;
+  int w_end = causal ? min(kv_len, p0 + qw * 16 + 16) : kv_len;
+  if constexpr (MASK == MASK_POS) {
+    const int* qp = qpos + (size_t)b * Sq;
+    row_lo = __ldg(qp + min(q0 + r0, Sq - 1));
+    row_hi = __ldg(qp + min(q0 + r0 + 8, Sq - 1));
+    const int top = __reduce_max_sync(0xffffffffu, max(row_lo, row_hi));
+    w_end = causal ? min(kv_len, top + 1) : kv_len;
+  }
   const unsigned char* const sq = smem;
   const unsigned char* const sqlo = smem + C::OFF_QLO;
 
@@ -317,8 +348,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
 
     // online softmax in log2 units: sc becomes P
+    // a tile reaching past the warp's first row (with qpos: past the
+    // thread's own rows) is masked
     const bool mask =
-        k0 + BK > kv_len || (causal && k0 + BK - 1 > q0 + qw * 16);
+        k0 + BK > kv_len ||
+        (causal && k0 + BK - 1 > (MASK == MASK_POS ? min(row_lo, row_hi)
+                                                   : p0 + qw * 16));
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n)
@@ -448,7 +483,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* const ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r ? row_hi : row_lo;
+    const int row = q0 + r0 + 8 * r;  // the output row (not its position)
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
 #pragma unroll
@@ -458,13 +493,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, int KW>
+template <int D, int KW, int MASK>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KH, int kv_len, int causal, float scale,
-           cudaStream_t stream) {
+           int Sq, int Sk, int H, int KH, int kv_len, int causal, int q_off,
+           const int* qpos, int* ends, float scale, cudaStream_t stream) {
   using C = Cfg<D, KW>;
   static unsigned int smem_set = 0;
-  cudaError_t err = set_smem_once((const void*)flash_fwd_tf32<D, KW>,
+  cudaError_t err = set_smem_once((const void*)flash_fwd_tf32<D, KW, MASK>,
                                   C::SMEM, &smem_set);
   if (err != cudaSuccess) return (int)err;
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
@@ -473,30 +508,55 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       !tensor_map(&mk, k, F32, 4, ATOM, C::BK, D, KH, Sk, B) ||
       !tensor_map(&mv, v, F32, 4, ATOM, C::BK, D, KH, Sk, B))
     return -2;
+  if constexpr (MASK == MASK_POS) {
+    err = launch_tile_ends(qpos, ends, B, Sq, C::BQ, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   const long long blocks = (long long)B * H * ((Sq + C::BQ - 1) / C::BQ);
-  flash_fwd_tf32<D, KW><<<(unsigned)blocks, THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, static_cast<float*>(o), Sq, H, KH, kv_len, causal,
-      scale * LOG2E);
+  flash_fwd_tf32<D, KW, MASK><<<(unsigned)blocks, THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, static_cast<float*>(o), Sq, H, KH, kv_len, causal, q_off,
+      qpos, ends, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int MASK>
 int dispatch_kw(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Sk, int H, int KH, int kv_len, int causal,
-                float scale, int key_groups, cudaStream_t stream) {
+                int q_off, const int* qpos, int* ends, float scale,
+                int key_groups, cudaStream_t stream) {
   switch (key_groups) {
     case 2:
-      return launch<D, 2>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                          scale, stream);
+      return launch<D, 2, MASK>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
+                                q_off, qpos, ends, scale, stream);
     case 4:
-      return launch<D, 4>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                          scale, stream);
+      return launch<D, 4, MASK>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
+                                q_off, qpos, ends, scale, stream);
     case 8:
-      return launch<D, 8>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                          scale, stream);
+      return launch<D, 8, MASK>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
+                                q_off, qpos, ends, scale, stream);
     default:
       return -1;
   }
+}
+
+// the mask's instantiation: positions only for a causal call given them,
+// an offset only for a causal call with q_off > 0
+template <int D>
+int dispatch_mask(const void* q, const void* k, const void* v, void* o,
+                  int B, int Sq, int Sk, int H, int KH, int kv_len,
+                  int causal, int q_off, const int* qpos, int* ends,
+                  float scale, int key_groups, cudaStream_t stream) {
+  if (causal && qpos)
+    return dispatch_kw<D, MASK_POS>(q, k, v, o, B, Sq, Sk, H, KH, kv_len,
+                                    causal, 0, qpos, ends, scale, key_groups,
+                                    stream);
+  if (causal && q_off)
+    return dispatch_kw<D, MASK_OFFSET>(q, k, v, o, B, Sq, Sk, H, KH, kv_len,
+                                       causal, q_off, nullptr, nullptr,
+                                       scale, key_groups, stream);
+  return dispatch_kw<D, MASK_SAME>(q, k, v, o, B, Sq, Sk, H, KH, kv_len,
+                                   causal, 0, nullptr, nullptr, scale,
+                                   key_groups, stream);
 }
 
 }  // namespace
@@ -506,20 +566,28 @@ extern "C" {
 // float32 q: (B, Sq, H, D); k, v: (B, Sk, KH, D); o: (B, Sq, H, D); all
 // contiguous, 16-byte aligned, on the device of `stream`; D 64 or 128.
 // `key_groups` (2, 4 or 8) splits each block's keys over that many warp
-// groups (see the note above). Returns 0, a cudaError_t, -1 for an
-// unsupported D or key-group count, or -2 if a tensor map could not be
-// encoded.
+// groups (see the note above). `q_off` >= 0 is the absolute position of
+// query row 0 (the causal mask is col > q_off + row); `qpos`, where not
+// null, int32 (B, Sq) on the device, >= 0, each query row's position
+// instead (col > qpos[b, row]), and `scratch` then int32 on the device with
+// room for B * Sq values (the query tiles' key ends). Returns 0, a
+// cudaError_t, -1 for an unsupported D or key-group count, or -2 if a
+// tensor map could not be encoded.
 int flash_attention_tf32_forward(const void* q, const void* k, const void* v,
                                  void* o, int B, int Sq, int Sk, int H,
                                  int KH, int D, int kv_len, int causal,
-                                 float scale, int key_groups, void* stream) {
+                                 float scale, int key_groups, int q_off,
+                                 const void* qpos, void* scratch,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qp = static_cast<const int*>(qpos);
+  int* ends = static_cast<int*>(scratch);
   if (D == 64)
-    return dispatch_kw<64>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                           scale, key_groups, s);
+    return dispatch_mask<64>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
+                             q_off, qp, ends, scale, key_groups, s);
   if (D == 128)
-    return dispatch_kw<128>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
-                            scale, key_groups, s);
+    return dispatch_mask<128>(q, k, v, o, B, Sq, Sk, H, KH, kv_len, causal,
+                              q_off, qp, ends, scale, key_groups, s);
   return -1;
 }
 

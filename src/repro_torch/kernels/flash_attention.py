@@ -18,22 +18,21 @@ total (``flash_attention.launches``) and per route
 A query offset (``q_offset`` > 0) places query row r at absolute
 position ``q_offset + r`` against the keys: a prompt chunk written into
 a KV cache at ``cache_index = q_offset``, its K/V the cache's rows with
-``kv_len = q_offset + Sq``. Only ``wgmma`` takes it (the route every
-bf16 LM serves on); its launches are also counted apart
-(``flash_attention.offset_launches``). The float32 and CUDA-core kernels
-keep the same-position mask and raise at ``q_offset`` > 0.
-
-A query-position tensor (``q_positions``, int32 (B, Sq)) places query
-row r of sequence b at ``q_positions[b, r]``: the JAX package's mask
-(key <= the query's position, M-RoPE's t axis or the positions a
-forward is given), which differs from the slots on an image prompt (all
-patches at t = 0) or custom positions. ``wgmma`` takes it: each tile's
-last key and tile skip come from its rows' largest position, and its
-launches are counted apart too (``flash_attention.position_launches``).
-A small kernel in the same source finds each query tile's key end before
-the flash kernel runs, into scratch the wrapper allocates.
-The float32 and CUDA-core kernels raise on positions other than
-``q_offset + arange(Sq)`` (checked on the host, a sync they alone pay).
+``kv_len = q_offset + Sq``. A query-position tensor (``q_positions``,
+int32 (B, Sq)) places query row r of sequence b at ``q_positions[b,
+r]``: the JAX package's mask (key <= the query's position, M-RoPE's t
+axis or the positions a forward is given), which differs from the slots
+on an image prompt (all patches at t = 0) or custom positions. Every
+route takes both. On ``wgmma`` and ``tf32x3`` each is its own compiled
+instantiation (the same-position code of the diffusion calls is
+unchanged), and under positions each query tile's key end and tile skip
+come from its rows' largest position, found before the flash kernel by a
+small kernel (``csrc/tile_ends.cuh``) into scratch the wrapper
+allocates; ``cuda_core`` (head dims 16/32, no served path) masks by
+position and reads every key tile below ``kv_len``. Nothing is read on
+the host. Offset and position launches are counted apart, in total
+(``flash_attention.offset_launches``, ``.position_launches``) and by
+route (``.offset_route_launches``, ``.position_route_launches``).
 
 Bound on an H100 SXM at the UNet's shape (q (8,256,4,128), k/v
 (8,264,4,128), f32, non-causal): 1.11 GFLOP, taken at fp32 accuracy as
@@ -112,7 +111,8 @@ def _bind(name: str, extra):
 def _forward():
     global _FN
     if _FN is None:
-        _FN = _bind("flash_attention", [ctypes.c_int])
+        _FN = _bind("flash_attention",
+                    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return _FN
 
 
@@ -128,7 +128,9 @@ def _forward_tc():
 def _forward_tf32():
     global _FN_TF32
     if _FN_TF32 is None:
-        _FN_TF32 = _bind("flash_attention_tf32", [ctypes.c_int])
+        _FN_TF32 = _bind("flash_attention_tf32",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
     return _FN_TF32
 
 
@@ -142,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_len`` masks k/v rows at or past it (default Sk); ``q_offset`` is
     the absolute position of query row 0 for the causal mask, and
     ``q_positions`` (B, Sq) int32 on q's device, where given, each query
-    row's position (``wgmma`` only, both; the positions must be >= 0).
+    row's position (every route, both; the positions must be >= 0).
     Raises on anything the kernel does not take; never falls back."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -172,15 +174,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < kv <= Sk:
         raise ValueError(f"kv_len={kv_len} outside (0, {Sk}]")
     way = route(q.dtype, D)
-    q_off = int(q_offset)
+    q_off = int(q_offset) if causal else 0
     if q_off < 0:
         raise ValueError(f"flash_attention kernel: q_offset={q_offset} < 0")
-    if q_off and way != "wgmma":
-        raise ValueError(
-            f"flash_attention kernel: q_offset={q_off} > 0 (a prompt chunk "
-            f"at cache_index > 0) is taken by the bf16 wgmma route only, at "
-            f"head dims {TC_HEAD_DIMS}; {q.dtype} at head dim {D} routes "
-            f"to {way}")
     qpos = None
     if q_positions is not None and causal:
         if (q_positions.dtype != torch.int32 or q_positions.device != q.device
@@ -189,15 +185,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"flash_attention kernel: q_positions must be int32 "
                 f"({B}, {Sq}) on {q.device}, got {q_positions.dtype} "
                 f"{tuple(q_positions.shape)} on {q_positions.device}")
-        if way == "wgmma":
-            qpos = q_positions.contiguous()
-        elif not torch.equal(q_positions, q_off + torch.arange(
-                Sq, dtype=torch.int32, device=q.device).expand(B, Sq)):
-            raise ValueError(
-                f"flash_attention kernel: query positions other than the "
-                f"slots are taken by the bf16 wgmma route only, at head "
-                f"dims {TC_HEAD_DIMS}; {q.dtype} at head dim {D} routes to "
-                f"{way}")
+        qpos = q_positions.contiguous()
     if way != "cuda_core":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
@@ -206,25 +194,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    # the query tiles' key ends (B * ceil(Sq / tile rows) written; B * Sq
+    # bounds it whatever the kernel's tile)
+    ends = None if qpos is None or way == "cuda_core" \
+        else torch.empty_like(qpos)
+    pos_ptr = 0 if qpos is None else qpos.data_ptr()
+    ends_ptr = 0 if ends is None else ends.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Sq, Sk, H, KH, D, kv, int(causal), 1.0 / math.sqrt(D))
         if way == "wgmma":
             fn, errstr = _forward_tc()
-            # the query tiles' key ends (B * ceil(Sq / 128) written; B * Sq
-            # bounds it whatever the kernel's tile)
-            ends = None if qpos is None else torch.empty_like(qpos)
-            err = fn(*args, q_off, 0 if qpos is None else qpos.data_ptr(),
-                     0 if ends is None else ends.data_ptr(),
-                     sm_count(q.device), stream)
+            err = fn(*args, q_off, pos_ptr, ends_ptr, sm_count(q.device),
+                     stream)
         elif way == "tf32x3":
             fn, errstr = _forward_tf32()
             err = fn(*args, plan_key_groups(B, H, Sq, sm_count(q.device)),
-                     stream)
+                     q_off, pos_ptr, ends_ptr, stream)
         else:
             fn, errstr = _forward()
-            err = fn(*args, _DTYPES[q.dtype], stream)
+            err = fn(*args, _DTYPES[q.dtype], q_off, pos_ptr, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({way}) launch failed: "
                            + errstr(err).decode())
@@ -232,8 +222,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.route_launches[way] += 1
     if qpos is not None:
         flash_attention.position_launches += 1
+        flash_attention.position_route_launches[way] += 1
     elif q_off:
         flash_attention.offset_launches += 1
+        flash_attention.offset_route_launches[way] += 1
     return out
 
 
@@ -241,3 +233,5 @@ flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention.offset_launches = 0
 flash_attention.position_launches = 0
+flash_attention.offset_route_launches = dict.fromkeys(ROUTES, 0)
+flash_attention.position_route_launches = dict.fromkeys(ROUTES, 0)

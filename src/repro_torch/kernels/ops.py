@@ -27,6 +27,7 @@ from repro_torch.kernels import mlstm_chunk as _mlstm
 from repro_torch.kernels import ref
 from repro_torch.kernels import swiglu as _swiglu
 from repro_torch.kernels.impls import resolve_kernel_impl
+from repro_torch.parallel import local_calls
 
 KERNELS = {"flash_attention": _flash.flash_attention,
            "fused_groupnorm": _gn.fused_groupnorm,
@@ -163,26 +164,34 @@ def pick(name: str, impl: str = "fused"):
     (read when called, so a swapped module attribute is seen), ``unfused``
     the plain version (``PLAIN``) on any device. No kernel has a
     backward, so the train steps take ``unfused``: what the JAX package's
-    train steps compute, through plain ops that autograd differentiates."""
-    if resolve_kernel_impl(impl) == "unfused":
-        return PLAIN[name]
-    return globals()[name]
+    train steps compute, through plain ops that autograd differentiates.
+    Given DTensors (a step built on a mesh, ``launch/steps.py``) either
+    runs on their local shards (``parallel/local_calls.py``)."""
+    fn = PLAIN[name] if resolve_kernel_impl(impl) == "unfused" \
+        else globals()[name]
+    return local_calls.maybe_local(name, fn)
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def offset_launches() -> int:
+def offset_launches(way: Optional[str] = None) -> int:
     """Flash attention's launches with a query offset (``q_offset`` > 0,
-    a prompt chunk at ``cache_index`` > 0), all on ``wgmma``."""
-    return _flash.flash_attention.offset_launches
+    a prompt chunk at ``cache_index`` > 0): in total, or on route
+    ``way``."""
+    fn = _flash.flash_attention
+    return fn.offset_launches if way is None \
+        else fn.offset_route_launches[way]
 
 
-def position_launches() -> int:
+def position_launches(way: Optional[str] = None) -> int:
     """Flash attention's launches with a query-position tensor (a
-    forward given positions), all on ``wgmma``."""
-    return _flash.flash_attention.position_launches
+    forward given positions, or a prompt chunk at a tensor
+    ``cache_index``): in total, or on route ``way``."""
+    fn = _flash.flash_attention
+    return fn.position_launches if way is None \
+        else fn.position_route_launches[way]
 
 
 def route_counts(kernel: str = "flash_attention") -> Dict[str, int]:
@@ -202,3 +211,7 @@ def reset_launch_counts() -> None:
             fn.route_launches[way] = 0
     _flash.flash_attention.offset_launches = 0
     _flash.flash_attention.position_launches = 0
+    for counts in (_flash.flash_attention.offset_route_launches,
+                   _flash.flash_attention.position_route_launches):
+        for way in counts:
+            counts[way] = 0

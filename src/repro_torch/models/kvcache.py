@@ -13,9 +13,13 @@ package's ``_entry_specs`` builds it:
 
 Every entry starts at zero except the stabilisers ``m``, which start at
 -inf (the JAX package's ``fix_m``). The forward writes into the entries
-in place.
+in place. ``cache_specs`` gives the same list as ``meta`` tensors (shapes
+and dtypes only), ``cache_pspecs`` its partition specs and
+``cache_bytes`` its size.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -24,6 +28,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import mla as MLA
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
+from repro_torch.parallel.sharding import MeshAxes, P
 
 
 def cache_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -66,3 +71,57 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             entry[name] = torch.full(shape, fill, dtype=dt, device=dev)
         cache.append(entry)
     return cache
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The cache ``init_cache`` builds, as ``meta`` tensors: shapes and
+    dtypes, no data (the JAX package's ShapeDtypeStruct tree)."""
+    return [{name: torch.empty(shape, dtype=dt, device="meta")
+             for name, (shape, dt) in entry_specs(cfg, spec, batch,
+                                                  max_len).items()}
+            for spec in cfg.flat_pattern()]
+
+
+# Partition layouts by leaf name and ndim (the JAX package's, without its
+# leading period axis: the port's cache is a list of layers). KV caches
+# shard heads on the model axis where it divides them, else the sequence
+# dim; MLA's latent cache has no head dim and is always sequence-sharded.
+_BASE_SPECS = {
+    ("c_kv", 3): ("batch", "cache_seq", None),
+    ("k_rope", 3): ("batch", "cache_seq", None),
+    ("conv", 3): ("batch", None, "ffn"),       # (B, W-1, E)
+    ("h", 3): ("batch", "ffn", None),          # mamba (B, E, N)
+    ("C", 4): ("batch", "heads", None, None),  # mlstm (B, H, dk, dv)
+    ("n", 3): ("batch", "heads", None),        # mlstm (B, H, dk)
+    ("m", 2): ("batch", None),                 # mlstm (B, H)
+    ("c", 2): ("batch", None),                 # slstm (B, D)
+    ("n", 2): ("batch", None),
+    ("h", 2): ("batch", None),
+}
+
+
+def cache_pspecs(cache, rules: Dict[str, MeshAxes],
+                 model_axis_size: int = 0):
+    """PartitionSpecs for a cache list (of tensors of any device).
+    ``model_axis_size`` (if given) selects head- against
+    sequence-sharding for attention K/V."""
+    def one(name, leaf):
+        ndim = leaf.ndim
+        if name in ("k", "v") and ndim == 4:
+            kv_heads = leaf.shape[-2]
+            if model_axis_size and kv_heads % model_axis_size == 0:
+                logical = ("batch", None, "kv_heads", None)
+            else:
+                logical = ("batch", "cache_seq", None, None)
+        else:
+            logical = _BASE_SPECS.get((name, ndim),
+                                      ("batch",) + (None,) * (ndim - 1))
+        return P(*[rules.get(a) if a else None for a in logical])
+    return [{name: one(name, leaf) for name, leaf in entry.items()}
+            for entry in cache]
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a cache list (of tensors of any device)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for entry in cache for leaf in entry.values())

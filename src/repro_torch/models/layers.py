@@ -12,7 +12,11 @@ add), SwiGLU (the MLP's and each expert's), flash attention over fresh
 K/V (train and prefill) and decode attention over the cache (S = 1).
 LayerNorm, GELU, RoPE, the MoE router and dispatch, and the matmuls
 have no kernel in the JAX package and stay plain PyTorch. The JAX
-package's sharding constraints have no counterpart on one card.
+package's sharding constraints are ``parallel/sharding.constrain`` at
+the same points (a no-op without rules; under a step built on a mesh,
+``launch/steps.py``, a redistribution of the DTensor activations), and
+the cache writes go through ``parallel/local_calls`` (in place on a
+DTensor's local shard).
 
 Every function that reaches a kernel takes ``impl`` (``kernels/impls.py``):
 ``fused`` (the default) goes through ``ops``, ``unfused`` takes each
@@ -29,6 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.impls import resolve_kernel_impl
+from repro_torch.parallel.local_calls import replicated_call, write_rows
+from repro_torch.parallel.sharding import constrain
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -156,6 +162,9 @@ def gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
     v = v.repeat_interleave(G, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
         / math.sqrt(D)
+    if T == S:
+        # fresh K/V: head-sharded scores (a cache stays unconstrained)
+        scores = constrain(scores, "batch", "heads", None, None)
     kv_pos = torch.arange(T, device=q.device)
     if q_positions is None:
         q_positions = torch.arange(S, device=q.device).expand(B, S)
@@ -261,15 +270,19 @@ def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
       * S > 1 at an int ``cache_index`` > 0 (a prompt chunk): the flash
         kernel over the cache's rows with ``kv_len = cache_index + S``,
         the query positions or, under ``slot_mask``, the query offset
-        ``cache_index`` (on CUDA both on the bf16 ``wgmma`` route; the
-        float32 routes raise);
-      * S > 1 at a 0-d tensor ``cache_index`` (not read on the host):
-        the plain ``gqa_attention``; on CUDA no kernel covers it and the
-        ``fused`` route raises.
+        ``cache_index`` (every flash route takes both);
+      * S > 1 at a 0-d tensor ``cache_index`` (not read on the host): on
+        CUDA the flash kernel's position route over the whole cache, the
+        positions ``min(t, slots[-1])`` (t the query positions, or the
+        slots under ``slot_mask``), all computed on the device: the JAX
+        package's "key <= t and key < cache_index + S" is "key <= min(t,
+        cache_index + S - 1)"; on the CPU and on the ``unfused`` route
+        the plain ``gqa_attention``.
     Returns (out, cache)."""
     B, S, _ = x.shape
-    q = proj_heads(x, params["wq"])
-    k = proj_heads(x, params["wk"])
+    q = constrain(proj_heads(x, params["wq"]), "batch", None, "heads", None)
+    k = constrain(proj_heads(x, params["wk"]), "batch", None, "kv_heads",
+                  None)
     v = proj_heads(x, params["wv"])
     if cfg.rope != "none":
         cos, sin = rope_positions(cfg, positions)
@@ -287,8 +300,8 @@ def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
         if slots is None:
             slots = slots_for(S, cache_index, x.device)
         ck, cv = cache["k"], cache["v"]
-        ck.index_copy_(1, slots, k.to(ck.dtype))
-        cv.index_copy_(1, slots, v.to(cv.dtype))
+        write_rows(ck, 1, slots, k)
+        write_rows(cv, 1, slots, v)
         if S == 1:
             if valid_len is None:
                 valid_len = decode_valid_len(slots, B, qpos)
@@ -300,18 +313,22 @@ def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
             else:
                 out = flash(q, ck, cv, causal=True, kv_len=cache_index + S,
                             q_offset=cache_index, q_positions=qpos)
-        elif x.is_cuda and resolve_kernel_impl(impl) == "fused":
-            raise NotImplementedError(
-                "a prompt chunk of S > 1 at a tensor cache_index has no "
-                "kernel on CUDA: pass the index as an int (ROADMAP.md)")
+        elif resolve_kernel_impl(impl) == "fused" and ops._device_type(
+                x, "flash_attention") == "cuda":
+            seen = slots.expand(B, S) if qpos is None else qpos
+            last = slots[-1:].to(torch.int32)
+            out = flash(q, ck, cv, causal=True,
+                        q_positions=torch.minimum(seen.to(torch.int32),
+                                                  last).contiguous())
         else:
             out = gqa_attention(
                 q, ck, cv, causal=True,
                 q_positions=slots.expand(B, S) if qpos is None else qpos,
                 kv_valid_len=(slots[-1] + 1).expand(B))
+    out = constrain(out, "batch", None, "heads", None)
     wo = params["wo"]
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
-    return y, cache
+    return constrain(y, "batch", "seq", "act_embed"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -331,12 +348,12 @@ def mlp_init(gen, cfg, d_ff: Optional[int] = None, device=None):
 def mlp_apply(params, cfg, x, impl: str = "fused"):
     """SwiGLU through the kernel (``silu(x @ wg) * (x @ wi)``); GELU
     (tanh form, as ``jax.nn.gelu``) plain."""
-    h = x @ params["wi"]
+    h = constrain(x @ params["wi"], "batch", None, "ffn")
     if cfg.mlp == "swiglu":
         h = ops.pick("swiglu", impl)(x @ params["wg"], h)
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ params["wo_mlp"]
+    return constrain(h @ params["wo_mlp"], "batch", "seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -383,33 +400,55 @@ def moe_apply(params, cfg, x, impl: str = "fused"):
     E, K = m.num_experts, m.top_k
     xt = x.reshape(T, D)
     probs = torch.softmax(xt.float() @ params["router"], dim=-1)
+    cap = moe_capacity(T, cfg)
+    ebuf, dst, w, frac_tokens = replicated_call(
+        lambda a, b: _moe_dispatch(a, b, K, cap), xt, probs)
+    ebuf = constrain(ebuf, "experts", "expert_cap", None)
+    h = ops.pick("swiglu", impl)(torch.bmm(ebuf, params["e_wg"]),
+                                 torch.bmm(ebuf, params["e_wi"]))
+    eout = constrain(torch.bmm(h, params["e_wo"]), "experts", "expert_cap",
+                     None)
+    y = replicated_call(lambda e, d, g: _moe_combine(e, d, g, K), eout,
+                        dst, w)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], cfg, x, impl).reshape(T, D)
+    aux = E * torch.sum(frac_tokens * probs.mean(dim=0)) \
+        * m.router_aux_coef
+    return y.reshape(B, S, D), aux
+
+
+def _moe_dispatch(xt, probs, K: int, cap: int):
+    """The capacity dispatch of ``moe_apply`` over all T tokens: returns
+    the (E, cap, D) expert buffers, each (token, k) pair's slot ``dst``
+    (E * cap for a dropped pair), its gate weight ``w`` (T * K, 1) (0
+    when dropped) and each expert's share of first choices. On a mesh
+    it runs on the gathered tokens (``replicated_call``): the slots
+    count earlier pairs of the whole batch."""
+    T, D = xt.shape
+    E = probs.shape[-1]
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1)     # (T, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-    cap = moe_capacity(T, cfg)
-
     flat_expert = expert_idx.reshape(T * K)
     onehot = F.one_hot(flat_expert, E)                       # (TK, E)
     pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
     keep = pos < cap
     dst = torch.where(keep, flat_expert * cap + pos,
                       torch.full_like(pos, E * cap))         # drop bucket
-    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E * cap + 1, D), dtype=xt.dtype, device=xt.device)
     buf.index_add_(0, dst, xt.repeat_interleave(K, dim=0))
-    ebuf = buf[:-1].view(E, cap, D)
-    h = ops.pick("swiglu", impl)(torch.bmm(ebuf, params["e_wg"]),
-                                 torch.bmm(ebuf, params["e_wi"]))
-    eout = torch.bmm(h, params["e_wo"])
-    flat_out = torch.cat([eout.reshape(E * cap, D),
-                          torch.zeros((1, D), dtype=x.dtype,
-                                      device=x.device)])
-    w = gate_vals.reshape(T * K, 1).to(x.dtype) * keep[:, None].to(x.dtype)
-    y = (flat_out[dst] * w).reshape(T, K, D).sum(dim=1)
-    if "shared" in params:
-        y = y + mlp_apply(params["shared"], cfg, x, impl).reshape(T, D)
+    w = gate_vals.reshape(T * K, 1).to(xt.dtype) * keep[:, None].to(xt.dtype)
     frac_tokens = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
-    aux = E * torch.sum(frac_tokens * probs.mean(dim=0)) \
-        * m.router_aux_coef
-    return y.reshape(B, S, D), aux
+    return buf[:-1].view(E, cap, D), dst, w, frac_tokens
+
+
+def _moe_combine(eout, dst, w, K: int):
+    """Each token's gate-weighted sum over its K pairs' expert outputs
+    (T, D), from the (E, cap, D) outputs (a dropped pair's weight is 0)."""
+    E, cap, D = eout.shape
+    flat_out = torch.cat([eout.reshape(E * cap, D),
+                          torch.zeros((1, D), dtype=eout.dtype,
+                                      device=eout.device)])
+    return (flat_out[dst] * w).reshape(-1, K, D).sum(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -431,4 +470,4 @@ def embed_apply(params, cfg, tokens, positions=None):
     if cfg.pos_emb == "learned" and positions is not None:
         pos = positions if positions.ndim == 2 else positions[0]
         x = x + params["pos_embedding"][pos]
-    return x
+    return constrain(x, "batch", None, "act_embed")

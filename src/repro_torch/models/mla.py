@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from repro_torch.parallel.local_calls import write_rows
+from repro_torch.parallel.sharding import constrain
 from repro_torch.models.layers import (apply_rope, dense_init, gqa_attention,
                                        norm_apply, norm_init, proj_heads,
                                        rope_angles, slots_for, torch_dtype)
@@ -82,8 +84,8 @@ def _write(cache, c_kv, k_rope, cache_index, S):
     """Writes the new rows into the cache in place at ``cache_index``
     (an int or a 0-d device tensor)."""
     rows = slots_for(S, cache_index, c_kv.device)
-    cache["c_kv"].index_copy_(1, rows, c_kv.to(cache["c_kv"].dtype))
-    cache["k_rope"].index_copy_(1, rows, k_rope.to(cache["k_rope"].dtype))
+    write_rows(cache["c_kv"], 1, rows, c_kv)
+    write_rows(cache["k_rope"], 1, rows, k_rope)
 
 
 def mla_prefill(params, cfg, x, positions, cache=None, cache_index=0,
@@ -111,7 +113,7 @@ def mla_prefill(params, cfg, x, positions, cache=None, cache_index=0,
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     if cache is not None:
         _write(cache, c_kv, k_rope, cache_index, S)
-    return y, cache
+    return constrain(y, "batch", "seq", "act_embed"), cache
 
 
 def mla_decode(params, cfg, x, positions, cache, cache_index,
@@ -146,7 +148,7 @@ def mla_decode(params, cfg, x, positions, cache, cache_index,
     out = torch.einsum("bshr,rhv->bshv", ctx, params["w_uv"])
     wo = params["wo"]
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
-    return y, cache
+    return constrain(y, "batch", "seq", "act_embed"), cache
 
 
 def mla_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):

@@ -16,6 +16,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.parallel.local_calls import copy_into
+from repro_torch.parallel.sharding import constrain
 
 
 def _dims(cfg):
@@ -87,7 +89,7 @@ def mamba_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     """x: (B, S, D). ``state``: ``{"conv", "h"}`` or None; when given it
     is updated in place. Returns (y, state)."""
     _, N, R = _dims(cfg)
-    xz = x @ params["in_proj"]
+    xz = constrain(x @ params["in_proj"], "batch", None, "ffn")
     xin, z = xz.chunk(2, dim=-1)
     xc, new_conv = _causal_conv(xin, params["conv_kernel"],
                                 params["conv_bias"],
@@ -102,9 +104,10 @@ def mamba_apply(params, cfg, x, *, state=None, impl: str = "fused"):
                           impl=impl)
     y = y * F.silu(z)
     out = y @ params["out_proj"]
+    out = constrain(out, "batch", "seq", "act_embed")
     if state is None:
         return out, {"conv": new_conv, "h": h}
-    state["conv"].copy_(new_conv)
+    copy_into(state["conv"], new_conv)
     return out, state
 
 

@@ -49,6 +49,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
+from repro_torch.parallel.sharding import constrain
 
 MODES = ("train", "prefill", "decode")
 
@@ -131,7 +132,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     from a seeded ``torch.Generator`` on ``device`` (CUDA unless the
     caller passes "cpu")."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a "meta" tree (shapes only) draws nothing: any generator will do
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     dt = L.torch_dtype(cfg.dtype)
     p: Dict[str, Any] = {}
     if cfg.input_mode == "tokens":
@@ -212,6 +215,7 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
         if cfg.pos_emb == "learned":
             pos = positions if positions.ndim == 2 else positions[0]
             x = x + params["embed"]["pos_embedding"][pos]
+    x = constrain(x, "batch", "seq", "act_embed")
     valid_len = None
     if cache is not None and S == 1:
         valid_len = L.decode_valid_len(slots, B, qpos)
@@ -227,7 +231,8 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
     hidden = x
     x = L.norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps,
                      impl=impl)
-    out = (_logits(params, cfg, x), cache, _aux(aux, x.device))
+    logits = constrain(_logits(params, cfg, x), "batch", None, "vocab")
+    out = (logits, cache, _aux(aux, x.device))
     return out + (hidden,) if return_hidden else out
 
 

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, torch_dtype
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.parallel.local_calls import copy_into
+from repro_torch.parallel.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +77,7 @@ def mlstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     given it is updated in place. Returns (y, state)."""
     B, S, _ = x.shape
     E, H, dh = _mlstm_dims(cfg)
-    up = x @ params["wi_up"]
+    up = constrain(x @ params["wi_up"], "batch", None, "ffn")
     xb, z = up.chunk(2, dim=-1)
     xc, new_conv = _causal_conv(xb, params["conv_kernel"],
                                 params["conv_bias"],
@@ -93,9 +95,10 @@ def mlstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     h = h.reshape(B, S, E).to(x.dtype)
     h = h + xc * params["ogate_scale"].to(x.dtype)          # learnable skip
     out = (h * F.silu(z)) @ params["out_proj"]
+    out = constrain(out, "batch", "seq", "act_embed")
     if state is None:
         return out, {"conv": new_conv, **mstate}
-    state["conv"].copy_(new_conv)
+    copy_into(state["conv"], new_conv)
     return out, state
 
 
@@ -174,10 +177,11 @@ def slstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     y = torch.stack(hs, dim=1).to(x.dtype)
     y = F.gelu(y @ params["up_proj"], approximate="tanh") \
         @ params["down_proj"]
+    y = constrain(y, "batch", "seq", "act_embed")
     if state is None:
         return y, {"c": c, "n": n, "m": m, "h": h}
     for key, val in zip(("c", "n", "m", "h"), (c, n, m, h)):
-        state[key].copy_(val)
+        copy_into(state[key], val)
     return y, state
 
 

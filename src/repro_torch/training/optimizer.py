@@ -12,8 +12,8 @@ layout*. The port keeps conv weights as OIHW where the JAX package holds
 HWIO (``models/convert.py``), so a 4-D leaf's moments are quantized, and
 stored, in HWIO: blocks run over output channels as they do there, and
 the state equals the JAX package's leaf for leaf. Every 4-D leaf of the
-port's trees is a conv weight (the converter's rule). Sharding specs for
-the state (``opt_state_pspecs``) come with the distributed slice.
+port's trees is a conv weight (the converter's rule). ``opt_state_pspecs``
+gives the state's partition specs from the parameters'.
 """
 from __future__ import annotations
 
@@ -167,3 +167,16 @@ def make_adamw(cfg: OptimizerConfig):
         return new[0], new_state, {"lr": lr, "grad_norm": gnorm}
 
     return init, update
+
+
+def opt_state_pspecs(state: AdamWState, params_pspecs):
+    """Moments shard like their params; 8-bit block scales like the param
+    minus the last axis (replicated there); the count replicated."""
+    from repro_torch.parallel.sharding import P, is_spec
+
+    def scale_spec(s):
+        return P(*(tuple(s)[:-1] + (None,))) if len(s) else P()
+    sc = None
+    if state.m_scale is not None:
+        sc = map_tree(scale_spec, params_pspecs, is_leaf=is_spec)
+    return AdamWState(P(), params_pspecs, params_pspecs, sc, sc)

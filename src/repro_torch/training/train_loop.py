@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.transformer import forward, mtp_logits
+from repro_torch.parallel.sharding import gather_last
 from repro_torch.training.optimizer import OptimizerConfig, make_adamw
 from repro_torch.tree import leaves, map_tree, unflatten
 
@@ -39,7 +40,9 @@ def cross_entropy(logits, labels, z_coef: float = 0.0):
     """Mean CE over all tokens (fp32), with optional z-loss."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    # vocab-sharded logits (a step built on a mesh) are gathered along
+    # the vocabulary for the label pick
+    ll = torch.gather(gather_last(lg), -1, labels[..., None].long())[..., 0]
     loss = torch.mean(lse - ll)
     if z_coef:
         loss = loss + z_coef * torch.mean(torch.square(lse))

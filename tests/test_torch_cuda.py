@@ -504,21 +504,60 @@ def test_lm_kernel_path_matches_plain_path(cuda, monkeypatch):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
-def test_chunked_prefill_has_no_kernel_on_cuda(cuda):
-    """A float32 prompt chunk at cache_index > 0 has no kernel: the
-    float32 flash route keeps the same-position mask and refuses the
-    query offset; so does a chunk at a tensor cache_index. (bf16 chunks
-    take the wgmma route's offset:
-    ``test_chunked_prefill_takes_the_offset_route``.)"""
+def _chunked(cfg, p, toks, index, device):
+    """Logits of ``toks[:, 4:]`` prefilled as a chunk at ``index`` after
+    ``toks[:, :4]``."""
+    cache = init_cache(cfg, toks.shape[0], 32, device)
+    forward(p, cfg, toks[:, :4], cache=cache, mode="prefill")
+    return forward(p, cfg, toks[:, 4:], cache=cache, cache_index=index,
+                   mode="prefill")[0]
+
+
+def test_float32_chunk_takes_the_tf32x3_offset_route(cuda, monkeypatch):
+    """A float32 prompt chunk at an int cache_index > 0 (head dim 128)
+    runs the tf32x3 kernel's offset instantiation, and its logits equal
+    those with every ``ops`` function swapped for its plain version."""
     cfg, p = _lm(cuda)
-    cache = init_cache(cfg, 1, 32, cuda)
-    toks = torch.zeros(1, 4, dtype=torch.long, device=cuda)
-    forward(p, cfg, toks, cache=cache, mode="prefill")
-    with pytest.raises(ValueError, match="cache_index > 0"):
-        forward(p, cfg, toks, cache=cache, cache_index=4, mode="decode")
-    with pytest.raises(NotImplementedError, match="tensor cache_index"):
-        forward(p, cfg, toks, cache=cache,
-                cache_index=torch.tensor(4, device=cuda), mode="decode")
+    g = torch.Generator(device=cuda).manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g,
+                         device=cuda)
+    ops.reset_launch_counts()
+    got = _chunked(cfg, p, toks, 4, cuda)
+    assert ops.offset_launches("tf32x3") == cfg.num_layers
+    for name, plain in ops.PLAIN.items():
+        monkeypatch.setattr(ops, name, plain)
+    want = _chunked(cfg, p, toks, 4, cuda)
+    torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+
+
+def test_tensor_cache_index_chunk_takes_the_position_route(cuda,
+                                                           monkeypatch):
+    """A prompt chunk at a 0-d device cache_index runs flash's position
+    route over the whole cache, with nothing read on the host (CUDA's
+    sync debug mode raises on a synchronising call), and gives the
+    logits of the same chunk at the int index (the offset route) and of
+    the plain versions."""
+    cfg, p = _lm(cuda)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g,
+                         device=cuda)
+    index = torch.tensor(4, device=cuda)
+    cache = init_cache(cfg, 2, 32, cuda)
+    forward(p, cfg, toks[:, :4], cache=cache, mode="prefill")
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = forward(p, cfg, toks[:, 4:], cache=cache, cache_index=index,
+                      mode="prefill")[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.position_launches("tf32x3") == cfg.num_layers
+    at_int = _chunked(cfg, p, toks, 4, cuda)
+    torch.testing.assert_close(got, at_int, **FA_TOL[torch.float32])
+    for name, plain in ops.PLAIN.items():
+        monkeypatch.setattr(ops, name, plain)
+    want = _chunked(cfg, p, toks, index, cuda)
+    torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("B,Sq,T,H,KH,D,q_off", [
@@ -549,9 +588,6 @@ def test_flash_wgmma_offset_route_matches_plain(cuda, B, Sq, T, H, KH, D,
                                    q_offset=q_off)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **FA_TOL[torch.bfloat16])
-    with pytest.raises(ValueError, match="wgmma route only"):
-        tflash.flash_attention(q.float(), k.float(), v.float(),
-                               kv_len=q_off + Sq, q_offset=q_off)
 
 
 def test_chunked_prefill_takes_the_offset_route(cuda):
@@ -610,8 +646,7 @@ def test_flash_wgmma_position_route_matches_plain(cuda, B, Sq, T, H, KH, D,
     masks keys past q_positions[b, r] (and at or past kv_len), against
     the plain version; a tile whose rows all sit at t = 0 still sees key
     0. Its launches count on wgmma and as position launches. At the
-    slots it equals the offset route; the float32 route raises on other
-    positions."""
+    slots it equals the offset route."""
     g = torch.Generator(device=cuda).manual_seed(37)
     q = _randn(g, (B, Sq, H, D), cuda, torch.bfloat16)
     k = _randn(g, (B, T, KH, D), cuda, torch.bfloat16)
@@ -633,10 +668,76 @@ def test_flash_wgmma_position_route_matches_plain(cuda, B, Sq, T, H, KH, D,
         off = tflash.flash_attention(q, k, v, causal=True, kv_len=kv,
                                      q_offset=kv - Sq)
         torch.testing.assert_close(got, off, rtol=0, atol=0)
-    elif D in (64, 128):
-        with pytest.raises(ValueError, match="wgmma route only"):
-            tflash.flash_attention(q.float(), k.float(), v.float(),
-                                   kv_len=kv, q_positions=pos)
+
+
+@pytest.mark.parametrize("B,Sq,T,H,KH,D,q_off", [
+    (4, 128, 512, 28, 4, 128, 128),   # qwen2-vl's chunk shape, float32
+    (4, 128, 512, 28, 4, 128, 256),
+    (4, 128, 512, 28, 4, 128, 384),
+    (2, 200, 640, 8, 2, 64, 333),     # ragged Sq, D 64
+    (1, 1, 64, 8, 8, 128, 17),        # one query row
+    (3, 130, 300, 9, 3, 64, 170),     # G = 3, ragged tiles
+    (2, 100, 400, 8, 2, 32, 250),     # cuda_core
+    (1, 70, 90, 4, 4, 16, 20),        # cuda_core, one tile
+])
+def test_flash_float32_offset_matches_plain(cuda, B, Sq, T, H, KH, D, q_off):
+    """The float32 routes with a query offset (tf32x3's offset
+    instantiation at head dims 64/128, cuda_core's mask at 16/32): query
+    row r at q_off + r against a cache of T rows, kv_len = q_off + Sq,
+    against the plain version; launches count on the route and as offset
+    launches there."""
+    g = torch.Generator(device=cuda).manual_seed(41)
+    q = _randn(g, (B, Sq, H, D), cuda)
+    k = _randn(g, (B, T, KH, D), cuda)
+    v = _randn(g, (B, T, KH, D), cuda)
+    way = tflash.route(torch.float32, D)
+    assert way == ("tf32x3" if D in (64, 128) else "cuda_core")
+    ops.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v, causal=True, kv_len=q_off + Sq,
+                                 q_offset=q_off)
+    torch.cuda.synchronize()
+    assert ops.offset_launches(way) == ops.route_counts()[way] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, kv_len=q_off + Sq,
+                                   q_offset=q_off)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("B,Sq,T,H,KH,D,kv,kind", [
+    (4, 512, 512, 28, 4, 128, 512, "zeros"),     # an image prompt at t = 0
+    (4, 128, 512, 28, 4, 128, 256, "grid_text"),  # a grid-then-text chunk
+    (2, 200, 640, 8, 2, 64, 640, "grid_text"),   # ragged Sq, D 64
+    (3, 130, 300, 9, 3, 64, 260, "random"),      # past kv_len - 1 too
+    (2, 256, 384, 8, 2, 128, 384, "slots"),      # = the offset route
+    (2, 64, 200, 8, 2, 32, 150, "random"),       # cuda_core
+    (1, 90, 90, 4, 4, 16, 90, "zeros"),          # cuda_core at t = 0
+])
+def test_flash_float32_positions_match_plain(cuda, B, Sq, T, H, KH, D, kv,
+                                             kind):
+    """The float32 routes with a query-position tensor: row r of sequence
+    b masks keys past q_positions[b, r] and at or past kv_len (rows at
+    t = 0 see key 0 only; random positions run past kv_len - 1), against
+    the plain version; launches count on the route and as position
+    launches there. At the slots it equals the offset route."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    q = _randn(g, (B, Sq, H, D), cuda)
+    k = _randn(g, (B, T, KH, D), cuda)
+    v = _randn(g, (B, T, KH, D), cuda)
+    pos = _positions(kind, B, Sq, kv, cuda)
+    way = tflash.route(torch.float32, D)
+    ops.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v, causal=True, kv_len=kv,
+                                 q_positions=pos)
+    torch.cuda.synchronize()
+    assert ops.position_launches(way) == ops.route_counts()[way] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, kv_len=kv,
+                                   q_positions=pos)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **FA_TOL[torch.float32])
+    if kind == "slots":
+        off = tflash.flash_attention(q, k, v, causal=True, kv_len=kv,
+                                     q_offset=kv - Sq)
+        torch.testing.assert_close(got, off, rtol=0, atol=0)
 
 
 def test_flash_position_route_refuses_what_it_does_not_take(cuda):
