@@ -203,10 +203,28 @@ before the next, in bfloat16 with random weights:
     ``reduce_scatter_grads`` and ``run_pipeline`` on the one-rank ring
     against dense torch; the host wall each built step adds, median of 5
     in turns. No multi-GPU claim: no collective crosses cards.
-19. The wall time and the card's line again, one JSON line listing
+19. The analysis (``analysis_phase``): Yi-9B at full width and depth
+    (bf16) prefilled with 4 x 512 tokens and one decode step at B 4
+    through the kernels, and the smollm-135m train step at 8 x 512
+    (unfused), each one untimed call under ``analysis.count.Count`` on
+    the card (counters zeroed just before and read just after) and the
+    same call on ``meta``: the card's dot flops must equal meta's
+    (relative 1e-9). For each path it logs the time an earlier phase
+    measured (the lm phase's prefill and decode median, the training
+    phase's step median) beside its compute and memory terms at the H100
+    SXM5 peaks (989 TFLOP/s bf16, 3.35 TB/s), the dominant one,
+    ``model_flops``, its ratio to the dot flops, and the roofline
+    fraction (``model_flops`` at peak over the measured time), with the
+    card's name and power limit. Then ``python -m
+    repro_torch.launch.dryrun --arch yi-9b --shape decode_32k`` in a
+    subprocess on the 16 x 16 mesh and with ``--multi-pod`` (256 and 512
+    fake ranks, meta tensors, on the host's CPU): each record must be
+    ``ok`` with nonzero dot flops and a nonzero all-gather or all-reduce
+    count.
+20. The wall time and the card's line again, one JSON line listing
     every ported kernel, with its launches by path (diffusion, offline,
     live, lm, xlstm, jamba, lm_family, train, float32_chunks,
-    distribution) and, for flash attention,
+    distribution, analysis) and, for flash attention,
     its routes (``tf32x3`` over one UNet forward, ``wgmma`` over one
     Yi-9B prefill, ``cuda_core`` at the UNet's inputs, ``wgmma_offset``
     over one chunked qwen2-vl prompt at the slots, ``wgmma_positions``
@@ -369,6 +387,11 @@ F32_PATH_B, F32_PATH_CHUNK = 2, 64
 # a LM_BATCH x LM_PROMPT prefill then DIST_DECODES decode steps; host
 # walls as medians of DIST_REPS calls in turns
 DIST_LM_LAYERS, DIST_DECODES, DIST_REPS = 8, 8, 5
+# the analysis: the card's dot flops of each path must equal meta's (both
+# exact sums of integers in float64; the margin is for float sums), and
+# the dry-run CLI's cell, run on both production meshes
+ANALYSIS_REL = 1e-9
+DRYRUN_ARGV = ["--arch", "yi-9b", "--shape", "decode_32k"]
 
 
 def log(msg: str) -> None:
@@ -3450,6 +3473,202 @@ def distribution_phase(torch, np):
     return counts, details
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the analysis (work counted on the card and on meta, the
+# roofline at H100 peaks) and the dry run
+# ---------------------------------------------------------------------------
+def _counted(torch, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` once under ``analysis.count.Count``, then
+    synchronised: the count's result."""
+    from repro_torch.analysis.count import count_call
+    _, got = count_call(fn, *args, **kwargs)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    return got
+
+
+def _on_meta(torch, tree):
+    from repro_torch.tree import map_tree
+    return map_tree(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def analysis_paths(torch, np):
+    """Each path's count on the card and on ``meta``: Yi-9B (full width
+    and depth, bf16) prefill of LM_BATCH x LM_PROMPT and one decode step
+    through the kernels, and the TRAIN_ARCH train step at TRAIN_BATCH x
+    TRAIN_SEQ on the unfused route, each one untimed call."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import cache_len, serve_decode, serve_prefill
+    from repro_torch.models.kvcache import init_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    out = {}
+    cfg = get_config(LM_ARCH)
+    T = cache_len(ShapeConfig("smoke_decode", "decode", LM_PROMPT + LM_STEPS,
+                              LM_BATCH))
+    g = torch.Generator(device=DEV).manual_seed(70)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=g, device=DEV)
+    tok = prompts[:, -1:]
+    for dev in (DEV, "meta"):
+        params = init_params(cfg, seed=71, device=dev) if dev != "meta" \
+            else init_params(cfg, device="meta")
+        cache = init_cache(cfg, LM_BATCH, T, dev)
+        p_in = prompts if dev != "meta" else _on_meta(torch, prompts)
+        t_in = tok if dev != "meta" else _on_meta(torch, tok)
+        out[("prefill", dev)] = _counted(torch, serve_prefill, params, cfg,
+                                         cache, p_in)
+        out[("decode", dev)] = _counted(torch, serve_decode, params, cfg,
+                                        cache, t_in, LM_PROMPT)
+        del params, cache
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    train_cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(opt=OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                                           total_steps=TRAIN_STEPS + 1))
+    opt_init, step = make_train_step(train_cfg, tcfg)
+    batch = launch_train.make_batch(train_cfg, np.random.default_rng(72),
+                                    TRAIN_BATCH, TRAIN_SEQ, 72, 0, DEV)
+    for dev in (DEV, "meta"):
+        params = init_params(train_cfg, seed=73, device=dev) \
+            if dev != "meta" else init_params(train_cfg, device="meta")
+        b = batch if dev != "meta" else _on_meta(torch, batch)
+        out[("train", dev)] = _counted(torch, step, params, opt_init(params),
+                                       b)
+        del params
+        gc.collect()
+    shapes = {"prefill": ShapeConfig("smoke_prefill", "prefill", LM_PROMPT,
+                                     LM_BATCH),
+              "decode": ShapeConfig("smoke_decode", "decode", LM_PROMPT,
+                                    LM_BATCH),
+              "train": ShapeConfig("smoke_train", "train", TRAIN_SEQ,
+                                   TRAIN_BATCH)}
+    archs = {"prefill": cfg, "decode": cfg, "train": train_cfg}
+    return out, shapes, archs
+
+
+def analysis_dryrun():
+    """``python -m repro_torch.launch.dryrun --arch yi-9b --shape
+    decode_32k`` in a subprocess, on the 16 x 16 mesh and with
+    ``--multi-pod``: each record must have status ok, nonzero dot flops
+    and a nonzero all-gather or all-reduce count."""
+    import os
+    from repro_torch.analysis import roofline
+    out_dir = ROOT / "experiments" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    recs = {}
+    for mesh, extra in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            *DRYRUN_ARGV, *extra, "--out-dir", str(out_dir)],
+                           capture_output=True, text=True, env=env, cwd=ROOT,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"dry run on {mesh}: exit {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        rec = json.loads((out_dir / mesh / "yi-9b__decode_32k.json")
+                         .read_text())
+        coll = rec.get("collectives", {})
+        row = roofline.analyze(rec) if rec.get("status") == "ok" else None
+        log(f"dry run yi-9b decode_32k on {mesh} ({rec.get('n_devices')} "
+            f"fake ranks, subprocess wall {wall:.1f} s, build "
+            f"{rec.get('build_s')} s, trace {rec.get('trace_s')} s): status "
+            f"{rec['status']}, per device dot_flops "
+            f"{rec.get('dot_flops', 0):.6e}, traffic "
+            f"{rec.get('traffic_bytes', 0):.6e} B, arguments "
+            f"{rec.get('argument_size_in_bytes', 0) / 2**30:.3f} GiB, "
+            f"collectives {coll}"
+            + (f"; roofline at H100 peaks: compute {row['compute_s']:.6f} s, "
+               f"memory {row['memory_s']:.6f} s, collective "
+               f"{row['collective_s']:.6f} s ({row['dominant']}), "
+               f"roofline fraction {row['roofline_frac']:.4e}"
+               if row else ""))
+        n = sum(coll.get(k, {}).get("count", 0)
+                for k in ("all-gather", "all-reduce"))
+        if rec["status"] != "ok" or not rec.get("dot_flops") or not n:
+            fail(f"dry run on {mesh}: {rec.get('status')} "
+                 f"{rec.get('error', '')}")
+        recs[mesh] = {k: rec.get(k) for k in (
+            "status", "n_devices", "build_s", "trace_s", "dot_flops",
+            "traffic_bytes", "argument_size_in_bytes",
+            "output_size_in_bytes", "collectives")}
+        recs[mesh]["wall_s"] = wall
+        recs[mesh]["roofline"] = row
+    return recs
+
+
+def analysis_phase(torch, np, details):
+    """Phase 19: (a) each path's work counted under ``analysis.count`` on
+    the card (one untimed call, the LM steps through the kernels, every
+    launch counter zeroed just before and read just after) and on
+    ``meta``: the card's dot flops must equal meta's (within
+    ANALYSIS_REL); (b) each path's measured time (from the phase that
+    timed it) against its roofline terms at H100 peaks, ``model_flops``
+    and the roofline fraction; (c) the dry-run CLI on both production
+    meshes (``analysis_dryrun``). Returns the launches and the
+    details."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    card = details["build"]["card"]
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    counted, shapes, archs = analysis_paths(torch, np)
+    counts = ops.launch_counts()
+    measured = {
+        "prefill": (details["lm"]["slice"]["prefill_ms"],
+                    "one host-timed call, lm phase"),
+        "decode": (details["lm"]["slice"]["decode_step_median_ms"],
+                   f"median of {LM_STEPS} steps, CUDA events, lm phase"),
+        "train": (details["training"]["lm"]["step_median_ms"],
+                  f"median of {TRAIN_STEPS} steps, CUDA events, training "
+                  "phase")}
+    info = {"card": card, "paths": {}}
+    bad = []
+    for path in ("prefill", "decode", "train"):
+        card_c, meta_c = counted[(path, DEV)], counted[(path, "meta")]
+        fl, fl_meta = card_c["dot_flops"], meta_c["dot_flops"]
+        rel = abs(fl - fl_meta) / max(fl_meta, 1.0)
+        t = roofline.terms(fl, card_c["traffic_bytes"])
+        mf = roofline.model_flops(archs[path], shapes[path])
+        ms, how = measured[path]
+        frac = (mf / roofline.PEAK_FLOPS * 1e3) / ms
+        log(f"analysis {path} ({archs[path].name}, {shapes[path].kind} "
+            f"B {shapes[path].global_batch} S {shapes[path].seq_len}) on "
+            f"{card}: dot_flops card {fl:.6e} vs meta {fl_meta:.6e} "
+            f"(relative {rel:.3e}); traffic card "
+            f"{card_c['traffic_bytes']:.6e} vs meta "
+            f"{meta_c['traffic_bytes']:.6e} B; at H100 peaks compute "
+            f"{t['compute_s'] * 1e3:.4f} ms, memory "
+            f"{t['memory_s'] * 1e3:.4f} ms ({t['dominant']}); model_flops "
+            f"{mf:.6e}, model/dot {mf / fl:.4f}; measured {ms:.3f} ms "
+            f"({how}); roofline fraction {frac:.4e}")
+        if rel > ANALYSIS_REL or fl <= 0:
+            bad.append(path)
+        info["paths"][path] = {
+            "dot_flops": fl, "dot_flops_meta": fl_meta,
+            "traffic_bytes": card_c["traffic_bytes"],
+            "traffic_bytes_meta": meta_c["traffic_bytes"], **t,
+            "model_flops": mf, "measured_ms": ms, "measured_by": how,
+            "roofline_frac": frac}
+    log(f"analysis launches: {counts} (the Yi-9B prefill and decode step "
+        "through the kernels; the train step launches none)")
+    if bad:
+        fail(f"analysis: the card's dot flops differ from meta's: {bad}")
+    if any(counts[k] == 0 for k in ("flash_attention", "decode_attention",
+                                    "fused_rmsnorm", "swiglu")):
+        fail(f"analysis: an LM kernel did not launch: {counts}")
+    info["dryrun"] = analysis_dryrun()
+    info["wall_s"] = time.perf_counter() - t0
+    log(f"analysis phase wall {info['wall_s']:.1f} s")
+    return counts, info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write per-shape details as JSON here")
@@ -3518,6 +3737,7 @@ def main(argv=None) -> int:
     f32_entries, f32_counts, details["float32_routes"] = \
         float32_routes_phase(torch)
     dist_counts, details["distribution"] = distribution_phase(torch, np)
+    analysis_counts, details["analysis"] = analysis_phase(torch, np, details)
     # flash attention's three routes: the diffusion path's float32 calls
     # on tf32x3, the LM paths' bf16 calls on wgmma; cuda_core (no path's
     # head dim) timed at the UNet's inputs as the float32 route's earlier
@@ -3570,7 +3790,8 @@ def main(argv=None) -> int:
                    "lm_family": family_counts[e["name"]],
                    "train": train_counts[e["name"]],
                    "float32_chunks": f32_counts[e["name"]],
-                   "distribution": dist_counts[e["name"]]}
+                   "distribution": dist_counts[e["name"]],
+                   "analysis": analysis_counts[e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         kernels.append({k: e[k] for k in (

@@ -122,6 +122,14 @@ class ModelConfig:
                 f"{len(self.period_pattern)}")
         return body // len(self.period_pattern)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when per-token decode cost does not grow with context length
+        (SSM / SSM-dominant hybrid). Used for the long_500k skip rule."""
+        mixers = [m for m, _ in self.prefix_pattern + self.period_pattern]
+        n_attn = sum(m in ("attn", "mla") for m in mixers)
+        return n_attn == 0 or (n_attn / len(mixers)) <= 0.25
+
     def flat_pattern(self) -> Tuple[BlockSpec, ...]:
         return self.prefix_pattern + self.period_pattern * self.n_periods
 

@@ -10,7 +10,8 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.config.base import MLAConfig, ModelConfig, SSMConfig
-from repro_torch.configs.shapes import SHAPES, ShapeConfig  # noqa: F401
+from repro_torch.configs.shapes import (SHAPES, ShapeConfig,  # noqa: F401
+                                        applicable)
 
 ARCH_IDS: List[str] = [
     "xlstm-125m",

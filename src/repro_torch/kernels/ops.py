@@ -11,13 +11,21 @@ autograd would differentiate (grad mode on, an input that requires
 grad) raises and names the ``"unfused"`` route (``needs_grad``);
 ``pick(name, impl)`` gives a model the function of that route: the
 plain version, which autograd differentiates on any device.
+
+A ``meta`` tensor (the dry run's shapes, ``launch/dryrun.py``) takes a
+shape-only branch: an empty output of the kernel's shape and dtype, no
+arithmetic, no launch. Under an ``analysis.count.Count`` each
+dispatcher adds its kernel's work (``WORK``) and runs its call
+uncounted, so a call counts the same on the CPU, the card and ``meta``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 
+from repro_torch.analysis import count as _count
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_groupnorm as _gn
@@ -52,9 +60,81 @@ PLAIN = {"flash_attention": ref.flash_attention_ref,
          "mamba_scan": ref.mamba_scan_ref}
 
 
+def _bytes(*tensors) -> int:
+    return _count.tensor_bytes(list(tensors))
+
+
+# each kernel's work in one call, (dot flops, traffic bytes), for
+# ``analysis.count``: the flops are what the count gives the plain
+# version (2·M·N·K of its products: attention's two over every key row,
+# the recurrences' per step); the bytes are 2 x what the kernel writes
+# (its outputs and the states it updates in place), the JAX package's
+# rule for a kernel call. Its plain version's own bytes follow how
+# einsum lowers for the operands' strides, which no formula of shapes
+# can repeat.
+def _flash_work(q, k, v, **_):
+    B, Sq, H, D = q.shape
+    return 4.0 * B * H * Sq * k.shape[1] * D, 2 * _bytes(q)
+
+
+def _decode_work(q, k, v, valid_len):
+    B, H, D = q.shape
+    return 4.0 * B * H * k.shape[1] * D, 2 * _bytes(q)
+
+
+def _groupnorm_work(x, scale, bias, **_):
+    return 0.0, 2 * _bytes(x)
+
+
+def _rmsnorm_work(x, scale, *, residual=None, eps=1e-5):
+    return 0.0, 2 * _bytes(x) * (1 if residual is None else 2)
+
+
+def _swiglu_work(gate, up):
+    return 0.0, 2 * _bytes(gate)
+
+
+def _mlstm_work(q, k, v, i_pre, f_pre, C, n, m):
+    B, T, H, dk = q.shape
+    dv = v.shape[-1]
+    h = B * T * H * dv * _count.dtype_bytes(v.dtype)
+    return 2.0 * T * B * H * dk * (dv + 1), 2 * (h + _bytes(C, n, m))
+
+
+def _mamba_work(u, dt, A, B, C, D, h):
+    Bt, T, E = u.shape
+    return 2.0 * T * Bt * E * A.shape[1], 2 * _bytes(u, h)
+
+
+WORK = {"flash_attention": _flash_work,
+        "fused_groupnorm": _groupnorm_work,
+        "decode_attention": _decode_work,
+        "fused_rmsnorm": _rmsnorm_work,
+        "swiglu": _swiglu_work,
+        "mlstm_chunk": _mlstm_work,
+        "mamba_scan": _mamba_work}
+
+
+def _counted(name: str):
+    """A dispatcher that, under an active ``Count``, adds ``WORK[name]``
+    of its call and runs the call uncounted."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            c = _count.active()
+            if c is None:
+                return fn(*args, **kwargs)
+            with c.kernel(*WORK[name](*args, **kwargs)):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
 def _device_type(t: torch.Tensor, kernel: str) -> str:
+    """The branch ``t`` takes: "cuda" (the kernel), "cpu" (its plain
+    version) or "meta" (shapes only); any other device raises."""
     kind = t.device.type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{kernel}: no kernel for device {t.device}")
     return kind
 
@@ -77,16 +157,20 @@ def _refuse_grad(kernel: str, *tensors) -> None:
             "through it")
 
 
+@_counted("flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True,
                     kv_len: Optional[int] = None, q_offset: int = 0,
                     q_positions=None):
     """q: (B,Sq,H,D); k, v: (B,Sk,KH,D); query row r at position
     ``q_offset + r``, or at ``q_positions[b, r]`` ((B, Sq) int32) where
     given. See ``ref.flash_attention_ref``."""
-    if _device_type(q, "flash_attention") == "cpu":
+    kind = _device_type(q, "flash_attention")
+    if kind == "meta":
+        return torch.empty_like(q)
+    if kind == "cpu":           # contiguous, as the kernel writes it
         return ref.flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
                                        q_offset=q_offset,
-                                       q_positions=q_positions)
+                                       q_positions=q_positions).contiguous()
     _refuse_grad("flash_attention", q, k, v)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
@@ -94,10 +178,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                   q_positions=q_positions)
 
 
+@_counted("fused_groupnorm")
 def fused_groupnorm(x, scale, bias, *, groups: int, act: bool = True,
                     eps: float = 1e-5):
     """x: (B, ..., C) channels-last. See ``ref.groupnorm_silu_ref``."""
-    if _device_type(x, "fused_groupnorm") == "cpu":
+    kind = _device_type(x, "fused_groupnorm")
+    if kind == "meta":
+        return torch.empty_like(x)
+    if kind == "cpu":
         return ref.groupnorm_silu_ref(x, scale, bias, groups=groups, eps=eps,
                                       act=act)
     _refuse_grad("fused_groupnorm", x, scale, bias)
@@ -105,20 +193,29 @@ def fused_groupnorm(x, scale, bias, *, groups: int, act: bool = True,
                                act=act, eps=eps)
 
 
+@_counted("decode_attention")
 def decode_attention(q, k, v, valid_len):
     """q: (B,H,D) one token; k, v: (B,T,KH,D); valid_len: (B,) int32.
     See ``ref.decode_attention_ref``."""
-    if _device_type(q, "decode_attention") == "cpu":
-        return ref.decode_attention_ref(q, k, v, valid_len)
+    kind = _device_type(q, "decode_attention")
+    if kind == "meta":
+        return torch.empty_like(q)
+    if kind == "cpu":           # contiguous, as the kernel writes it
+        return ref.decode_attention_ref(q, k, v, valid_len).contiguous()
     _refuse_grad("decode_attention", q, k, v)
     return _decode.decode_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), valid_len.contiguous())
 
 
+@_counted("fused_rmsnorm")
 def fused_rmsnorm(x, scale, *, residual=None, eps: float = 1e-5):
     """x: (..., D). With ``residual``, returns ``(normed, x + residual)``.
     See ``ref.rmsnorm_ref``."""
-    if _device_type(x, "fused_rmsnorm") == "cpu":
+    kind = _device_type(x, "fused_rmsnorm")
+    if kind == "meta":
+        return torch.empty_like(x) if residual is None else (
+            torch.empty_like(x), torch.empty_like(x))
+    if kind == "cpu":
         return ref.rmsnorm_ref(x, scale, eps=eps, residual=residual)
     _refuse_grad("fused_rmsnorm", x, scale, residual)
     return _rms.fused_rmsnorm(
@@ -126,19 +223,27 @@ def fused_rmsnorm(x, scale, *, residual=None, eps: float = 1e-5):
         residual=None if residual is None else residual.contiguous())
 
 
+@_counted("swiglu")
 def swiglu(gate, up):
     """silu(gate) * up. See ``ref.swiglu_ref``."""
-    if _device_type(gate, "swiglu") == "cpu":
+    kind = _device_type(gate, "swiglu")
+    if kind == "meta":
+        return torch.empty_like(gate)
+    if kind == "cpu":
         return ref.swiglu_ref(gate, up)
     _refuse_grad("swiglu", gate, up)
     return _swiglu.swiglu(gate.contiguous(), up.contiguous())
 
 
+@_counted("mlstm_chunk")
 def mlstm_chunk(q, k, v, i_pre, f_pre, C, n, m):
     """The mLSTM recurrence from state (C, n, m), which is overwritten
     with the final state; returns h in v's dtype. See
     ``ref.mlstm_chunk_ref``."""
-    if _device_type(q, "mlstm_chunk") == "cpu":
+    kind = _device_type(q, "mlstm_chunk")
+    if kind == "meta":
+        return v.new_empty(q.shape[:-1] + v.shape[-1:])
+    if kind == "cpu":
         return ref.mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m)
     _refuse_grad("mlstm_chunk", q, k, v, i_pre, f_pre, C, n, m)
     return _mlstm.mlstm_chunk(q.contiguous(), k.contiguous(),
@@ -146,12 +251,16 @@ def mlstm_chunk(q, k, v, i_pre, f_pre, C, n, m):
                               f_pre.contiguous(), C, n, m)
 
 
+@_counted("mamba_scan")
 def mamba_scan(u, dt, A, B, C, D, h):
     """The selective scan from state h, which is overwritten with the
     final state; returns y in u's dtype. B and C go to the kernel as they
     are (column slices of one projection are taken without a copy). See
     ``ref.mamba_scan_ref``."""
-    if _device_type(u, "mamba_scan") == "cpu":
+    kind = _device_type(u, "mamba_scan")
+    if kind == "meta":
+        return torch.empty_like(u)
+    if kind == "cpu":
         return ref.mamba_scan_ref(u, dt, A, B, C, D, h)
     _refuse_grad("mamba_scan", u, dt, A, B, C, D, h)
     return _mamba.mamba_scan(u.contiguous(), dt.contiguous(),

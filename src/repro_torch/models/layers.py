@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.impls import resolve_kernel_impl
 from repro_torch.parallel.local_calls import replicated_call, write_rows
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, splittable
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -196,7 +196,8 @@ def attn_init(gen, cfg, device=None):
 def proj_heads(x, w):
     """x (..., D) @ w (D, N, hd) -> (..., N, hd)."""
     D, N, hd = w.shape
-    return (x @ w.reshape(D, N * hd)).view(*x.shape[:-1], N, hd)
+    return splittable(x @ w.reshape(D, N * hd), -1, N).view(
+        *x.shape[:-1], N, hd)
 
 
 def slots_for(seq: int, cache_index, device):
@@ -466,8 +467,12 @@ def embed_init(gen, cfg, device=None):
 
 
 def embed_apply(params, cfg, tokens, positions=None):
-    x = params["embedding"][tokens]
+    """Rows of the embedding table (``jnp.take`` in the JAX package) as
+    ``F.embedding``: DTensor propagates it with the batch split over two
+    mesh axes (the multi-pod mesh), where indexing raises in some torch
+    versions."""
+    x = F.embedding(tokens, params["embedding"])
     if cfg.pos_emb == "learned" and positions is not None:
         pos = positions if positions.ndim == 2 else positions[0]
-        x = x + params["pos_embedding"][pos]
+        x = x + F.embedding(pos, params["pos_embedding"])
     return constrain(x, "batch", None, "act_embed")

@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -214,7 +215,7 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
         x = inputs.to(L.torch_dtype(cfg.dtype))
         if cfg.pos_emb == "learned":
             pos = positions if positions.ndim == 2 else positions[0]
-            x = x + params["embed"]["pos_embedding"][pos]
+            x = x + F.embedding(pos, params["embed"]["pos_embedding"])
     x = constrain(x, "batch", "seq", "act_embed")
     valid_len = None
     if cache is not None and S == 1:

@@ -20,7 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, torch_dtype
 from repro_torch.models.ssm import _causal_conv
 from repro_torch.parallel.local_calls import copy_into
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, splittable
 
 
 # ---------------------------------------------------------------------------
@@ -83,10 +83,11 @@ def mlstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
                                 params["conv_bias"],
                                 None if state is None else state["conv"])
     xc = F.silu(xc)
-    q = (xc @ params["wq_m"]).reshape(B, S, H, dh)
-    k = (xc @ params["wk_m"]).reshape(B, S, H, dh) * dh ** -0.5
-    v = (xb @ params["wv_m"]).reshape(B, S, H, dh)
-    gates = (xc @ params["w_if"]).reshape(B, S, H, 2)
+    q = splittable(xc @ params["wq_m"], -1, H).reshape(B, S, H, dh)
+    k = splittable(xc @ params["wk_m"], -1, H).reshape(B, S, H, dh) \
+        * dh ** -0.5
+    v = splittable(xb @ params["wv_m"], -1, H).reshape(B, S, H, dh)
+    gates = splittable(xc @ params["w_if"], -1, H).reshape(B, S, H, 2)
     i_pre = gates[..., 0] + params["i_bias"]
     f_pre = gates[..., 1] + params["f_bias"]
     h, mstate = mlstm_scan(q, k, v, i_pre, f_pre, None if state is None

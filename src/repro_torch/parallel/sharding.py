@@ -165,6 +165,29 @@ def gather_last(x):
         x.redistribute(x.device_mesh, pl)
 
 
+def splittable(x, dim: int, parts: int):
+    """``x`` ready for a view that splits dim ``dim`` into (``parts``,
+    -1): a DTensor whose mesh dims shard that dim over a product not
+    dividing ``parts`` has them gathered first (DTensor refuses such a
+    view: 4 KV heads out of a projection sharded 16 ways); a plain
+    tensor, or one split evenly, passes."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    d = dim % x.ndim
+    sizes = x.device_mesh.mesh.shape
+    on = [i for i, p in enumerate(x.placements)
+          if isinstance(p, Shard) and p.dim == d]
+    prod = 1
+    for i in on:
+        prod *= sizes[i]
+    if not on or parts % prod == 0:
+        return x
+    pl = tuple(Replicate() if i in on else p
+               for i, p in enumerate(x.placements))
+    return x.redistribute(x.device_mesh, pl)
+
+
 def constrain(x, *logical_axes: Optional[str]):
     """Pin activation sharding by logical axis names (no-op without
     rules; a plain tensor passes unchanged). Dims not divisible by their
