@@ -392,6 +392,21 @@ DIST_LM_LAYERS, DIST_DECODES, DIST_REPS = 8, 8, 5
 # the dry-run CLI's cell, run on both production meshes
 ANALYSIS_REL = 1e-9
 DRYRUN_ARGV = ["--arch", "yi-9b", "--shape", "decode_32k"]
+# the sharded train and prefill steps the dry run repaired, at full
+# widths and cut depth (arch, shape, multi-pod, overrides): each in its
+# own process, all started together as phase 19 begins, each under
+# DRYRUN_CELL_TIMEOUT seconds; every record must say ok
+DRYRUN_CELLS = (
+    ("yi-9b", "train_4k", False, ("num_layers=1",)),
+    ("qwen2-vl-7b", "train_4k", False, ("num_layers=1",)),
+    ("jamba-v0.1-52b", "train_4k", False, ("num_layers=8",)),
+    ("xlstm-125m", "train_4k", False, ("num_layers=6",)),
+    ("deepseek-v3-671b", "train_4k", False,
+     ("prefix_pattern=()", "num_layers=1")),
+    ("yi-9b", "prefill_32k", False, ("num_layers=1",)),
+    ("yi-9b", "train_4k", True, ("num_layers=1",)),
+)
+DRYRUN_CELL_TIMEOUT = 600
 
 
 def log(msg: str) -> None:
@@ -3601,6 +3616,73 @@ def analysis_dryrun():
     return recs
 
 
+def start_dryrun_cells():
+    """Each ``DRYRUN_CELLS`` cell's ``python -m repro_torch.launch.dryrun``
+    started in its own process: [(cell, process, record path, start)]."""
+    import os
+    out_dir = ROOT / "experiments" / "dryrun_torch" / "cells"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    started = []
+    for arch, shape, multi_pod, overrides in DRYRUN_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--out-dir", str(out_dir)]
+        argv += ["--multi-pod"] if multi_pod else []
+        for ov in overrides:
+            argv += ["--override", ov]
+        mesh = "2x16x16" if multi_pod else "16x16"
+        started.append(((arch, shape, mesh, overrides),
+                        subprocess.Popen(argv, stdout=subprocess.DEVNULL,
+                                         stderr=subprocess.PIPE, text=True,
+                                         env=env, cwd=ROOT),
+                        out_dir / mesh / f"{arch}__{shape}.json",
+                        time.perf_counter()))
+    return started
+
+
+def finish_dryrun_cells(started):
+    """Wait for ``start_dryrun_cells``' processes (each within
+    DRYRUN_CELL_TIMEOUT of its start) and log each record: status,
+    build and trace seconds, per-device dot flops, collectives. Fails
+    unless every record says ok with nonzero dot flops and a collective.
+    Returns the records' fields by cell."""
+    import torch
+    from repro_torch.analysis import roofline
+    out = {}
+    for (arch, shape, mesh, overrides), proc, path, t0 in started:
+        left = DRYRUN_CELL_TIMEOUT - (time.perf_counter() - t0)
+        try:
+            _, err = proc.communicate(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            fail(f"dry run {arch} {shape} on {mesh}: not done in "
+                 f"{DRYRUN_CELL_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or not path.exists():
+            fail(f"dry run {arch} {shape} on {mesh}: exit {proc.returncode}: "
+                 f"{err[-2000:]}")
+        rec = json.loads(path.read_text())
+        coll = rec.get("collectives", {})
+        n_coll = sum(c.get("count", 0) for c in coll.values())
+        row = roofline.analyze(rec) if rec.get("status") == "ok" else None
+        log(f"dry run cell {arch} {shape} on {mesh} ({' '.join(overrides)}; "
+            f"torch {torch.__version__}): status {rec['status']}, build "
+            f"{rec.get('build_s')} s, trace {rec.get('trace_s')} s, read "
+            f"{wall:.1f} s after its start, per device dot_flops "
+            f"{rec.get('dot_flops', 0):.6e}, collectives "
+            f"{ {k: int(v['count']) for k, v in coll.items()} }"
+            + (f", dominant {row['dominant']}" if row else "")
+            + ("" if rec["status"] == "ok"
+               else f": {rec.get('error', '')[:1500]}"))
+        if rec["status"] != "ok" or not rec.get("dot_flops") or not n_coll:
+            fail(f"dry run {arch} {shape} on {mesh}: {rec.get('status')} "
+                 f"{rec.get('error', '')[:1500]}")
+        out[f"{arch} {shape} {mesh}"] = {
+            "overrides": list(overrides), "read_after_s": wall,
+            "dominant": row["dominant"], **{k: rec.get(k) for k in (
+                "status", "build_s", "trace_s", "dot_flops",
+                "traffic_bytes", "collectives")}}
+    return out
+
+
 def analysis_phase(torch, np, details):
     """Phase 19: (a) each path's work counted under ``analysis.count`` on
     the card (one untimed call, the LM steps through the kernels, every
@@ -3609,8 +3691,23 @@ def analysis_phase(torch, np, details):
     ANALYSIS_REL); (b) each path's measured time (from the phase that
     timed it) against its roofline terms at H100 peaks, ``model_flops``
     and the roofline fraction; (c) the dry-run CLI on both production
-    meshes (``analysis_dryrun``). Returns the launches and the
-    details."""
+    meshes (``analysis_dryrun``); (d) the sharded train and prefill
+    cells at full widths and cut depth (``DRYRUN_CELLS``), started as
+    the phase begins and read at its end (``finish_dryrun_cells``).
+    Returns the launches and the details."""
+    # the repaired cells run on the host's other cores meanwhile: this
+    # phase times nothing
+    started = start_dryrun_cells()
+    try:
+        return _analysis_phase(torch, np, details, started)
+    finally:
+        for _, proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _analysis_phase(torch, np, details, started):
     from repro_torch.analysis import roofline
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
@@ -3664,6 +3761,7 @@ def analysis_phase(torch, np, details):
                                     "fused_rmsnorm", "swiglu")):
         fail(f"analysis: an LM kernel did not launch: {counts}")
     info["dryrun"] = analysis_dryrun()
+    info["dryrun_cells"] = finish_dryrun_cells(started)
     info["wall_s"] = time.perf_counter() - t0
     log(f"analysis phase wall {info['wall_s']:.1f} s")
     return counts, info

@@ -114,6 +114,17 @@ def swiglu_ref(gate, up):
     return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)
 
 
+# steps whose inputs the plain recurrences prepare at once (the JAX
+# package's scan chunk): within a chunk only the recurrence itself runs
+# step by step, so a step is a few operations, and the chunk bounds the
+# prepared buffers to chunk x state
+SCAN_CHUNK = 256
+
+
+def _chunks(T: int):
+    return [(t0, min(t0 + SCAN_CHUNK, T)) for t0 in range(0, T, SCAN_CHUNK)]
+
+
 def mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m):
     """Stabilised exponential-gated mLSTM recurrence, one step at a time
     in float32 (the arithmetic of the JAX package's ``mlstm_scan``).
@@ -122,7 +133,14 @@ def mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m):
     (B, H, dk), ``m`` (B, H), float32, read as the initial state and
     overwritten with the final one; from C = n = 0, m = -inf it computes
     what the TPU kernel computes from its zero state. Returns h (B, T,
-    H, dv) in v's dtype."""
+    H, dv) in v's dtype.
+
+    Each chunk of steps runs the stabiliser chain m_t = max(lf_t +
+    m_{t-1}, i_t) step by step, then takes its gates and the gated outer
+    products k_t v_t^T at once, then runs C_t = fg_t C_{t-1} + ig_t k_t
+    v_t^T and n_t likewise step by step, and reads every h_t from the
+    stacked states: the same values, operation for operation, as one
+    step at a time."""
     T, dk = q.shape[1], q.shape[-1]
     qf = q.float() * dk ** -0.5
     kf, vf = k.float(), v.float()
@@ -132,24 +150,37 @@ def mlstm_chunk_ref(q, k, v, i_pre, f_pre, C, n, m):
     # autograd still needs the initial state the first step read
     Ct, nt, mt = C.clone(), n.clone(), m.clone()
     hs = []
-    for t in range(T):
-        m_new = torch.maximum(logf[:, t] + mt, ipre[:, t])
-        fg = torch.exp(logf[:, t] + mt - m_new)
-        ig = torch.exp(ipre[:, t] - m_new)
-        kt = kf[:, t]
-        Ct = fg[..., None, None] * Ct \
-            + ig[..., None, None] * (kt[..., :, None] * vf[:, t, :, None, :])
-        nt = fg[..., None] * nt + ig[..., None] * kt
-        num = torch.einsum("bhd,bhde->bhe", qf[:, t], Ct)
+    for t0, t1 in _chunks(T):
+        lf_m, ms = [], []
+        for lf, ii in zip(logf[:, t0:t1].unbind(1), ipre[:, t0:t1].unbind(1)):
+            a = lf + mt
+            mt = torch.maximum(a, ii)
+            lf_m.append(a)
+            ms.append(mt)
+        m_new = torch.stack(ms, dim=1)                      # (B, L, H)
+        fg = torch.exp(torch.stack(lf_m, dim=1) - m_new)
+        ig = torch.exp(ipre[:, t0:t1] - m_new)
+        kc = kf[:, t0:t1]
+        kv = ig[..., None, None] * (kc[..., :, None] * vf[:, t0:t1, :, None, :])
+        ik = ig[..., None] * kc
+        Cs, ns = [], []
+        for f4, a, f3, b in zip(fg[..., None, None].unbind(1), kv.unbind(1),
+                                fg[..., None].unbind(1), ik.unbind(1)):
+            Ct = f4 * Ct + a
+            nt = f3 * nt + b
+            Cs.append(Ct)
+            ns.append(nt)
+        qc = qf[:, t0:t1]
+        num = torch.einsum("blhd,blhde->blhe", qc, torch.stack(Cs, dim=1))
         den = torch.maximum(
-            torch.abs(torch.einsum("bhd,bhd->bh", qf[:, t], nt)),
+            torch.abs(torch.einsum("blhd,blhd->blh", qc,
+                                   torch.stack(ns, dim=1))),
             torch.exp(-m_new))
         hs.append(num / den[..., None])
-        mt = m_new
     C.copy_(Ct)
     n.copy_(nt)
     m.copy_(mt)
-    return torch.stack(hs, dim=1).to(v.dtype)
+    return torch.cat(hs, dim=1).to(v.dtype)
 
 
 def mamba_scan_ref(u, dt, A, B, C, D, h):
@@ -158,16 +189,24 @@ def mamba_scan_ref(u, dt, A, B, C, D, h):
     ``y = h . C + D u``. u, dt: (Bt, T, E); A: (E, N); B, C: (Bt, T, N);
     D: (E,); ``h`` (Bt, E, N) float32 is read as the initial state and
     overwritten with the final one. Returns y (Bt, T, E) in u's dtype,
-    D u added in float32 before the cast."""
-    T = u.shape[1]
+    D u added in float32 before the cast. Each chunk of steps takes its
+    decays and inputs at once and reads its outputs from the stacked
+    states; only the update runs step by step (the same values as one
+    step at a time)."""
     uf, dtf = u.float(), dt.float()
     Bf, Cf, Af = B.float(), C.float(), A.float()
     ht = h.clone()         # h is overwritten at the end (see mlstm)
     ys = []
-    for t in range(T):
-        dA = torch.exp(dtf[:, t, :, None] * Af)
-        ht = dA * ht + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
-        ys.append(torch.einsum("ben,bn->be", ht, Cf[:, t]))
+    for t0, t1 in _chunks(u.shape[1]):
+        dtc = dtf[:, t0:t1]
+        dA = torch.exp(dtc[..., None] * Af)                  # (Bt, L, E, N)
+        dBu = (dtc * uf[:, t0:t1])[..., None] * Bf[:, t0:t1, None, :]
+        hs = []
+        for a, b in zip(dA.unbind(1), dBu.unbind(1)):
+            ht = a * ht + b
+            hs.append(ht)
+        ys.append(torch.einsum("blen,bln->ble", torch.stack(hs, dim=1),
+                               Cf[:, t0:t1]))
     h.copy_(ht)
-    y = torch.stack(ys, dim=1) + uf * D.float()
+    y = torch.cat(ys, dim=1) + uf * D.float()
     return y.to(u.dtype)

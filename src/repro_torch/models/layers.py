@@ -33,8 +33,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.impls import resolve_kernel_impl
-from repro_torch.parallel.local_calls import replicated_call, write_rows
-from repro_torch.parallel.sharding import constrain, splittable
+from repro_torch.parallel.local_calls import (maybe_local, replicated_call,
+                                              write_rows)
+from repro_torch.parallel.sharding import (constrain, foldable_grad,
+                                           gather_last, placed_grad,
+                                           splittable, splittable_grad)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -154,7 +157,17 @@ def gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
     The port runs it where no kernel covers the call: MLA's prefill (its
     query/key head dim differs from its value head dim), and a prompt
     chunk written at a 0-d tensor ``cache_index`` (a CPU tensor, or the
-    ``unfused`` route)."""
+    ``unfused`` route). On DTensors it runs on local shards
+    (``local_calls``, as the attention kernels do): DTensor would fold
+    (B, H) with the heads split ahead of its products, which torch 2.11
+    refuses."""
+    return maybe_local("gqa_attention", _gqa_attention)(
+        q, k, v, causal=causal, q_positions=q_positions,
+        kv_valid_len=kv_valid_len)
+
+
+def _gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
+                   kv_valid_len=None):
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -194,10 +207,23 @@ def attn_init(gen, cfg, device=None):
 
 
 def proj_heads(x, w):
-    """x (..., D) @ w (D, N, hd) -> (..., N, hd)."""
+    """x (..., D) @ w (D, N, hd) -> (..., N, hd). On DTensors the product's
+    output and the flat weight's gradient are each gathered where the
+    mesh splits their N * hd dim over more parts than N
+    (``splittable``, ``splittable_grad``)."""
     D, N, hd = w.shape
-    return splittable(x @ w.reshape(D, N * hd), -1, N).view(
-        *x.shape[:-1], N, hd)
+    w2 = splittable_grad(w.reshape(D, N * hd), -1, N)
+    return splittable(x @ w2, -1, N).view(*x.shape[:-1], N, hd)
+
+
+def merge_heads(out, wo):
+    """out (B, S, N, hd) @ wo (N, hd, D) -> (B, S, D), the heads merged.
+    On DTensors the gradients of the merged output and of the flat weight
+    are gathered where the backward's views could not split them back
+    into N heads (``splittable_grad``: 28 heads on 16)."""
+    B, S, N = out.shape[:3]
+    flat = splittable_grad(out.reshape(B, S, -1), -1, N)
+    return flat @ splittable_grad(wo.reshape(-1, wo.shape[-1]), 0, N)
 
 
 def slots_for(seq: int, cache_index, device):
@@ -327,8 +353,7 @@ def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
                 q_positions=slots.expand(B, S) if qpos is None else qpos,
                 kv_valid_len=(slots[-1] + 1).expand(B))
     out = constrain(out, "batch", None, "heads", None)
-    wo = params["wo"]
-    y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    y = merge_heads(out, params["wo"])
     return constrain(y, "batch", "seq", "act_embed"), cache
 
 
@@ -411,11 +436,14 @@ def moe_apply(params, cfg, x, impl: str = "fused"):
                      None)
     y = replicated_call(lambda e, d, g: _moe_combine(e, d, g, K), eout,
                         dst, w)
+    # the tokens back to (B, S, D), their gradient foldable for the
+    # reshape's backward (it meets the sequence-split residual)
+    y = foldable_grad(y.reshape(B, S, D))
     if "shared" in params:
-        y = y + mlp_apply(params["shared"], cfg, x, impl).reshape(T, D)
+        y = y + mlp_apply(params["shared"], cfg, x, impl)
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0)) \
         * m.router_aux_coef
-    return y.reshape(B, S, D), aux
+    return y, aux
 
 
 def _moe_dispatch(xt, probs, K: int, cap: int):
@@ -470,9 +498,11 @@ def embed_apply(params, cfg, tokens, positions=None):
     """Rows of the embedding table (``jnp.take`` in the JAX package) as
     ``F.embedding``: DTensor propagates it with the batch split over two
     mesh axes (the multi-pod mesh), where indexing raises in some torch
-    versions."""
-    x = F.embedding(tokens, params["embedding"])
+    versions. On a mesh the table's embedding dim is gathered first (the
+    FSDP all-gather): DTensor mismasks a lookup into a table split over
+    the mesh dim that splits the tokens' batch."""
+    x = F.embedding(tokens, gather_last(params["embedding"]))
     if cfg.pos_emb == "learned" and positions is not None:
         pos = positions if positions.ndim == 2 else positions[0]
         x = x + F.embedding(pos, params["pos_embedding"])
-    return constrain(x, "batch", None, "act_embed")
+    return placed_grad(constrain(x, "batch", None, "act_embed"))

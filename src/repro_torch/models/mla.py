@@ -26,8 +26,9 @@ import torch
 from repro_torch.parallel.local_calls import write_rows
 from repro_torch.parallel.sharding import constrain
 from repro_torch.models.layers import (apply_rope, dense_init, gqa_attention,
-                                       norm_apply, norm_init, proj_heads,
-                                       rope_angles, slots_for, torch_dtype)
+                                       merge_heads, norm_apply, norm_init,
+                                       proj_heads, rope_angles, slots_for,
+                                       torch_dtype)
 
 
 def mla_init(gen, cfg, device=None):
@@ -109,8 +110,7 @@ def mla_prefill(params, cfg, x, positions, cache=None, cache_index=0,
                    k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     v = proj_heads(c_kv, params["w_uv"])
     out = gqa_attention(q_full, k, v, causal=True, q_positions=pos)
-    wo = params["wo"]
-    y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    y = merge_heads(out, params["wo"])
     if cache is not None:
         _write(cache, c_kv, k_rope, cache_index, S)
     return constrain(y, "batch", "seq", "act_embed"), cache
@@ -146,8 +146,7 @@ def mla_decode(params, cfg, x, positions, cache, cache_index,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,btr->bshr", probs, c_kv.to(x.dtype))
     out = torch.einsum("bshr,rhv->bshv", ctx, params["w_uv"])
-    wo = params["wo"]
-    y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    y = merge_heads(out, params["wo"])
     return constrain(y, "batch", "seq", "act_embed"), cache
 
 

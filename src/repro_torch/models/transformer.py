@@ -50,7 +50,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, foldable, gather_last
 
 MODES = ("train", "prefill", "decode")
 
@@ -97,7 +97,8 @@ def block_apply(params, cfg: ModelConfig, spec, x, *, positions,
     ``(h, x) = norm(y, residual=x)``. ``slots``, ``valid_len``,
     ``q_positions`` and ``slot_mask`` are ``layers.attn_apply``'s."""
     mixer, ffn = spec
-    h = L.norm_apply(params["ln1"], x, cfg.norm, cfg.norm_eps, impl=impl)
+    h = foldable(L.norm_apply(params["ln1"], x, cfg.norm, cfg.norm_eps,
+                              impl=impl))
     if mixer == "attn":
         y, entry = L.attn_apply(params["attn"], cfg, h, positions=positions,
                                 cache=cache_entry, cache_index=cache_index,
@@ -119,6 +120,7 @@ def block_apply(params, cfg: ModelConfig, spec, x, *, positions,
         return x + y, entry, 0.0
     h, x = L.norm_apply(params["ln2"], y, cfg.norm, cfg.norm_eps,
                         residual=x, impl=impl)
+    h = foldable(h)
     aux = 0.0
     if ffn == "moe":
         y, aux = L.moe_apply(params["ffn"], cfg, h, impl)
@@ -232,7 +234,8 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
     hidden = x
     x = L.norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps,
                      impl=impl)
-    logits = constrain(_logits(params, cfg, x), "batch", None, "vocab")
+    logits = constrain(_logits(params, cfg, foldable(x)), "batch", None,
+                       "vocab")
     out = (logits, cache, _aux(aux, x.device))
     return out + (hidden,) if return_hidden else out
 
@@ -249,19 +252,19 @@ def mtp_logits(params, cfg: ModelConfig, hidden, next_tokens,
     if slot_mask:
         positions = default_positions(cfg, B,
                                       L.slots_for(S, 0, hidden.device))
-    emb = params["embed"]["embedding"][next_tokens]
+    emb = F.embedding(next_tokens, gather_last(params["embed"]["embedding"]))
     h = torch.cat([L.norm_apply(mp["norm_h"], hidden, cfg.norm,
                                 cfg.norm_eps, impl=impl),
                    L.norm_apply(mp["norm_e"], emb, cfg.norm, cfg.norm_eps,
                                 impl=impl)],
                   dim=-1)
-    h = h @ mp["proj"]
+    h = foldable(h) @ mp["proj"]
     h, _, aux = block_apply(mp["block"], cfg, cfg.period_pattern[-1], h,
                             positions=positions, cache_entry=None,
                             cache_index=0, mode="train", slot_mask=slot_mask,
                             impl=impl)
-    h = L.norm_apply(params["final_norm"], h, cfg.norm, cfg.norm_eps,
-                     impl=impl)
+    h = foldable(L.norm_apply(params["final_norm"], h, cfg.norm,
+                              cfg.norm_eps, impl=impl))
     if cfg.tie_embeddings:
         lg = h @ params["embed"]["embedding"].T
     else:

@@ -19,8 +19,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, torch_dtype
 from repro_torch.models.ssm import _causal_conv
-from repro_torch.parallel.local_calls import copy_into
-from repro_torch.parallel.sharding import constrain, splittable
+from repro_torch.parallel.local_calls import copy_into, maybe_local
+from repro_torch.parallel.sharding import (constrain, splittable,
+                                           splittable_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +94,7 @@ def mlstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
     h, mstate = mlstm_scan(q, k, v, i_pre, f_pre, None if state is None
                            else {key: state[key] for key in ("C", "n", "m")},
                            impl=impl)
-    h = h.reshape(B, S, E).to(x.dtype)
+    h = splittable_grad(h.reshape(B, S, E), -1, H).to(x.dtype)
     h = h + xc * params["ogate_scale"].to(x.dtype)          # learnable skip
     out = (h * F.silu(z)) @ params["out_proj"]
     out = constrain(out, "batch", "seq", "act_embed")
@@ -143,30 +144,21 @@ def slstm_init(gen, cfg, device=None):
     }
 
 
-def slstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
-    """Scalar-memory LSTM with exponential gating and per-head
-    recurrence, then a GELU (tanh form) up/down projection. ``state``:
-    ``{"c", "n", "m", "h"}`` each (B, D) float32, or None; when given it
-    is updated in place. No kernel: ``impl`` (the mixers' common
-    signature) changes nothing. Returns (y, state)."""
-    B, S, D = x.shape
-    H = cfg.num_heads
-    dh = D // H
-    if state is None:
-        z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        c, n, m, h = z, z, torch.full_like(z, float("-inf")), z
-    else:
-        c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    gx = (x @ params["w_gates"]).float() + torch.cat(
-        [params["i_bias"], params["f_bias"], params["z_bias"],
-         params["o_bias"]])
-    rw = params["r_gates"].float()                        # (H, dh, 4 dh)
+def slstm_scan(gx, rw, c, n, m, h):
+    """The sLSTM recurrence in float32 over the gate inputs ``gx`` (B, S,
+    4D) (input products and biases), with the per-head recurrent weights
+    ``rw`` (H, dh, 4 dh) from the states c, n, m, h (B, D). Returns (the
+    hidden states (B, S, D), c, n, m, h). On DTensors it runs on local
+    batch shards (``local_calls``): a step is a few small operations,
+    which DTensor would dispatch one by one."""
+    B, D = h.shape
+    H, dh = rw.shape[0], rw.shape[1]
     hs = []
-    for t in range(S):
+    for g in gx.unbind(1):
         rec = torch.einsum("bhd,hdg->bhg", h.reshape(B, H, dh),
                            rw).reshape(B, 4 * D)
-        ip, fp, zp, op = (gx[:, t] + rec).chunk(4, dim=-1)
-        lf = F.logsigmoid(fp)
+        ip, fp, zp, op = (g + rec).chunk(4, dim=-1)
+        lf = -F.softplus(-fp)          # log_sigmoid, as JAX defines it
         m_new = torch.maximum(lf + m, ip)
         ig = torch.exp(ip - m_new)
         fg = torch.exp(lf + m - m_new)
@@ -175,7 +167,27 @@ def slstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
         h = torch.sigmoid(op) * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
+    return torch.stack(hs, dim=1), c, n, m, h
+
+
+def slstm_apply(params, cfg, x, *, state=None, impl: str = "fused"):
+    """Scalar-memory LSTM with exponential gating and per-head
+    recurrence, then a GELU (tanh form) up/down projection. ``state``:
+    ``{"c", "n", "m", "h"}`` each (B, D) float32, or None; when given it
+    is updated in place. No kernel: ``impl`` (the mixers' common
+    signature) changes nothing. Returns (y, state)."""
+    B, S, D = x.shape
+    if state is None:
+        z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+        c, n, m, h = z, z, torch.full_like(z, float("-inf")), z
+    else:
+        c, n, m, h = state["c"], state["n"], state["m"], state["h"]
+    gx = (x @ params["w_gates"]).float() + torch.cat(
+        [params["i_bias"], params["f_bias"], params["z_bias"],
+         params["o_bias"]])
+    y, c, n, m, h = maybe_local("slstm_scan", slstm_scan)(
+        gx, params["r_gates"].float(), c, n, m, h)
+    y = y.to(x.dtype)
     y = F.gelu(y @ params["up_proj"], approximate="tanh") \
         @ params["down_proj"]
     y = constrain(y, "batch", "seq", "act_embed")

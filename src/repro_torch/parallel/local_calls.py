@@ -4,7 +4,11 @@ A kernel wrapper takes plain tensors: the CUDA kernels read raw
 pointers, and the plain versions reshape heads in ways DTensor's
 sharding propagation does not follow (it raises on a view that splits a
 sharded dim). So a kernel call that is given a DTensor runs on local
-shards (``call``, reached through ``kernels/ops.pick`` on either route):
+shards (``call``, reached through ``kernels/ops.pick`` on either route).
+Two plain computations run there too (``maybe_local``): the plain
+attention (``layers.gqa_attention``, planned as flash attention) and the
+sLSTM recurrence (``xlstm.slstm_scan``: by batch, its recurrent weight
+replicated), whose steps DTensor would dispatch one small op at a time:
 
   * every operand is redistributed to its plan, the placements the JAX
     package's ``constrain`` gives it: batch on the data axes; for
@@ -105,13 +109,12 @@ def _attention_plans(q, k, q_axes, kv_axes):
 
 def _plan(name: str, ops: list) -> list:
     """Placements for each operand of kernel ``name`` (all DTensors)."""
-    if name == "flash_attention":
+    if name in ("flash_attention", "gqa_attention"):
         q, k = ops[0], ops[1]
         qp, kp = _attention_plans(q, k, _ATTN_Q, _ATTN_KV)
-        plans = [qp, kp, kp]
-        if len(ops) > 3:                       # q_positions (B, Sq)
-            plans.append(S.logical_placements(ops[3], "batch", None))
-        return plans
+        # then q_positions (B, Sq), kv_valid_len (B,): by batch
+        return [qp, kp, kp] + [S.logical_placements(t, "batch")
+                               for t in ops[3:]]
     if name == "decode_attention":
         q, k = ops[0], ops[1]
         qp, kp = _attention_plans(q, k, ("batch", "heads", None), _ATTN_KV)
@@ -131,6 +134,12 @@ def _plan(name: str, ops: list) -> list:
         return [S.logical_placements(t, *(("batch",) if i not in (2, 5)
                                           else (None,)))
                 for i, t in enumerate(ops)]
+    if name == "slstm_scan":
+        # gx, rw, c, n, m, h: the recurrent weight (H, dh, 4 dh) carries
+        # no batch
+        return [S.logical_placements(t, *(("batch",) if i != 1
+                                          else (None,)))
+                for i, t in enumerate(ops)]
     if name == "fused_groupnorm":              # x; scale, bias (C,)
         return [S.logical_placements(ops[0], "batch")] + [
             S.logical_placements(t, None) for t in ops[1:]]
@@ -142,6 +151,7 @@ def _plan(name: str, ops: list) -> list:
 _IN_PLACE = {"mlstm_chunk": (5, 6, 7), "mamba_scan": (6,)}
 # the keyword operands that are tensors, in the order ``_plan`` takes them
 _TENSOR_KWARGS = {"flash_attention": ("q_positions",),
+                  "gqa_attention": ("q_positions", "kv_valid_len"),
                   "fused_rmsnorm": ("residual",)}
 
 
@@ -162,17 +172,25 @@ def call(name: str, fn: Callable, args: Sequence, kwargs: Dict):
     out_pl = plans[0]
     locs = [_local(t, pl, _grad_placements(pl, out_pl))
             for t, pl in zip(operands, plans)]
+    own = torch.is_grad_enabled()
+    if own:
+        # under grad a ``to_local`` view may not be written in place: the
+        # plain version writes its own copy, copied back below
+        for i in _IN_PLACE.get(name, ()):
+            locs[i] = locs[i].clone()
     for i, loc in zip(pos, locs):
         args[i] = loc
     for k, loc in zip(keys, locs[len(pos):]):
         kwargs[k] = loc
     out = fn(*args, **kwargs)
-    # states written in place: back into the operand's own shard
+    # states written in place: back into the operand's own shard (as
+    # data: the call's output carries the gradient)
     for i in _IN_PLACE.get(name, ()):
         t, pl, loc = operands[i], plans[i], locs[i]
-        if tuple(t.placements) != tuple(pl):
-            back = DTensor.from_local(loc, mesh, pl, run_check=False)
-            t.to_local().copy_(_local(back, t.placements))
+        if own or tuple(t.placements) != tuple(pl):
+            with torch.no_grad():
+                back = DTensor.from_local(loc, mesh, pl, run_check=False)
+                t.to_local().copy_(_local(back, t.placements))
 
     def wrap(o):
         return DTensor.from_local(o, mesh, out_pl, run_check=False)

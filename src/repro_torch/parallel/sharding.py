@@ -24,12 +24,23 @@ With rules and a mesh, ``constrain`` redistributes a DTensor to the
 rules' placements (with the JAX package's divisibility fallback: a dim
 its axes do not divide is replicated, see ``safe_spec``); a plain tensor
 passes unchanged, with or without a mesh.
+
+DTensor refuses some views that XLA reshards through: folding (B, S)
+with S split (torch 2.11), and splitting a dim whose mesh split does not
+divide the parts. ``foldable`` and ``splittable`` gather such a dim
+ahead of the view; ``splittable_grad``, ``foldable_grad`` and
+``placed_grad`` are identities whose backward lays the gradient out so
+that the view's backward can take it (DTensor's implicit
+redistributions inside an op are not autograd nodes, so a gradient comes
+back in whatever layout the op's backward chose).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -186,6 +197,74 @@ def splittable(x, dim: int, parts: int):
     pl = tuple(Replicate() if i in on else p
                for i, p in enumerate(x.placements))
     return x.redistribute(x.device_mesh, pl)
+
+
+def foldable(x):
+    """``x`` ready for a product that folds its leading dims into one (a
+    (B, S, D) activation times a weight): a DTensor split on a dim
+    between the first and the last has those mesh dims gathered (the
+    sequence under sequence parallelism; DTensor refuses to flatten
+    (B, S) with S split, as torch 2.11 does), the first and the last
+    keep theirs; a plain tensor passes. The gather's backward splits the
+    gradient back (a reduce-scatter of a partial one): the all-gather
+    before a column-parallel product under sequence parallelism."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Replicate() if isinstance(p, Shard)
+               and 0 < p.dim % x.ndim < x.ndim - 1 else p
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out by ``place``."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        ctx.place = place
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.place(grad), None
+
+
+def splittable_grad(x, dim: int, parts: int):
+    """``x`` unchanged, its gradient made ``splittable(grad, dim,
+    parts)``: for a tensor that a view splits after the product that
+    uses it (a projection's (D, N * hd) weight out of (D, N, hd)), whose
+    gradient the product's backward may shard over that dim where the
+    view's backward cannot split it (4 KV heads on 16). A plain tensor
+    passes."""
+    if not is_dtensor(x):
+        return x
+    return _GradPlaced.apply(x, lambda g: splittable(g, dim, parts))
+
+
+def foldable_grad(x):
+    """``x`` unchanged, its gradient made ``foldable``: for the output of
+    a reshape that unfolds (B * S) into (B, S), whose gradient the
+    sequence-split residual gives the sequence's split, where the
+    reshape's backward folds it again. A plain tensor passes."""
+    if not is_dtensor(x):
+        return x
+    return _GradPlaced.apply(x, foldable)
+
+
+def placed_grad(x):
+    """``x`` unchanged, its gradient laid out on ``x``'s own placements (a
+    partial sum reduced): for the output of a redistribution from a
+    partial sum of another kind (an embedding lookup's masked partial),
+    whose backward cannot turn a plain partial sum into it. A plain
+    tensor passes."""
+    if not is_dtensor(x):
+        return x
+    pl = tuple(x.placements)
+    return _GradPlaced.apply(
+        x, lambda g: g if tuple(g.placements) == pl
+        else g.redistribute(g.device_mesh, pl))
 
 
 def constrain(x, *logical_axes: Optional[str]):

@@ -24,6 +24,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch.models.convert import hwio_to_oihw, oihw_to_hwio
+from repro_torch.parallel.sharding import is_dtensor, splittable
 from repro_torch.tree import leaves, map_tree, unflatten
 
 
@@ -65,23 +66,46 @@ def _blocked_shape(shape, block) -> Tuple[Tuple[int, ...], int]:
     return shape[:-1] + (1,), last     # per-row scale fallback
 
 
+def _blocks(x: torch.Tensor, sshape, eff_block: int) -> torch.Tensor:
+    """x as (..., blocks, block) over the global last axis, as in the JAX
+    package. A DTensor whose last axis the mesh splits over a product
+    that does not divide the block count has it gathered first (7168 =
+    56 x 128 on a 16-way FSDP axis): DTensor refuses that view."""
+    return splittable(x, -1, sshape[-1]).reshape(sshape + (eff_block,))
+
+
+def _placed_like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``y`` back on ``x``'s placements, a partial sum there
+    replicated (a plain ``y``, or one already there, passes)."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return y if tuple(y.placements) == pl else \
+        y.redistribute(y.device_mesh, pl)
+
+
 def quantize8(x: torch.Tensor, block: int):
     """int8 blocks of ``block`` over the last axis, each with its absmax
-    / 127 scale (float32)."""
+    / 127 scale (float32); the codes keep ``x``'s placements on a
+    mesh."""
     shape = tuple(x.shape)
     sshape, eff_block = _blocked_shape(shape, block)
-    xb = x.reshape(sshape + (eff_block,))
+    xb = _blocks(x, sshape, eff_block)
     scale = torch.clamp(xb.abs().amax(dim=-1, keepdim=True) / 127.0,
                         min=1e-12)
     q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
-    return q.reshape(shape), scale.squeeze(-1).to(torch.float32)
+    return _placed_like(q.reshape(shape), x), \
+        scale.squeeze(-1).to(torch.float32)
 
 
 def dequantize8(q: torch.Tensor, scale: torch.Tensor, block: int):
+    """The float32 moment of ``quantize8``'s codes and scales, on the
+    codes' placements on a mesh."""
     shape = tuple(q.shape)
     sshape, eff_block = _blocked_shape(shape, block)
-    xb = q.reshape(sshape + (eff_block,)).to(torch.float32)
-    return (xb * scale[..., None]).reshape(shape)
+    xb = _blocks(q, sshape, eff_block).to(torch.float32)
+    return _placed_like((xb * scale[..., None]).reshape(shape), q)
 
 
 class AdamWState(NamedTuple):

@@ -34,7 +34,29 @@ TESTS = Path(__file__).resolve().parent
 WORLD = 4
 COLL_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
-TRAIN_ARCHS = ("smollm-135m", "deepseek-v3-671b")
+# the train cases: (arch, the reduced config's fields replaced). Beside
+# smollm-135m and deepseek-v3 (MLA, MoE, MTP, sequence parallelism,
+# 8-bit moments), each repaired sharded path at reduced widths: Yi-9B at
+# 6 heads and 3 KV heads, which the 2-way model axis does not divide,
+# under FSDP (the K/V projections' weight gradients come back split over
+# 48 = 3 x 16 columns, which the head split's backward cannot view as 3
+# heads; at 1 KV head, or without FSDP, DTensor gives them no such split
+# on a 2 x 2 mesh); Jamba's selective scan and xLSTM's mLSTM, whose
+# states the plain versions write in place under grad, and the sLSTM's
+# log-sigmoid (-softplus(-x)); 8-bit moments under FSDP at d_model 384,
+# where every leaf whose last dim is d_model (three blocks of 128) has
+# it split over the 2-way data axis (at 64, one block, DTensor views
+# the singleton block count through and nothing shows)
+TRAIN_CASES = {
+    "smollm-135m": ("smollm-135m", {}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {}),
+    "yi-9b-3kv-fsdp": ("yi-9b", {"num_heads": 6, "num_kv_heads": 3,
+                                 "d_model": 96, "fsdp": True}),
+    "jamba-v0.1-52b": ("jamba-v0.1-52b", {}),
+    "xlstm-125m": ("xlstm-125m", {}),
+    "smollm-135m-fsdp-8bit": ("smollm-135m", {"d_model": 384, "fsdp": True,
+                                              "opt_8bit_moments": True}),
+}
 # Yi-9B reduced: 4 KV heads divide the 2-way model axis (head-sharded
 # cache); at 1 KV head the cache is sequence-sharded
 SERVE_KV_HEADS = (4, 1)
@@ -67,10 +89,12 @@ def _serve_cfgs(kv_heads):
                  for c in (jconfigs, configs))
 
 
-def _train_cfgs(arch):
+def _train_cfgs(case):
     from repro import configs as jconfigs
     from repro_torch import configs
-    return jconfigs.reduced_config(arch), configs.reduced_config(arch)
+    arch, fields = TRAIN_CASES[case]
+    return tuple(dataclasses.replace(c.reduced_config(arch), **fields)
+                 for c in (jconfigs, configs))
 
 
 # ---------------------------------------------------------------------------
@@ -100,10 +124,10 @@ def _jax_collectives(inp):
     return out
 
 
-def _jax_train(arch, jp, batch):
+def _jax_train(case, jp, batch):
     import jax
     from repro.training import train_loop as R
-    jcfg, _ = _train_cfgs(arch)
+    jcfg, _ = _train_cfgs(case)
     init, step = R.make_train_step(jcfg, R.TrainConfig())
     _, _, m = jax.jit(step)(jp, init(jp), batch)
     return {k: float(v) for k, v in m.items()}
@@ -165,10 +189,10 @@ def subprocess_main(out_dir: str) -> None:
     out = Path(out_dir)
     inp = _collective_inputs()
     params, jparams = {}, {}
-    for arch in TRAIN_ARCHS:
-        jcfg, tcfg = _train_cfgs(arch)
-        jparams[arch] = init_params(jcfg, jax.random.PRNGKey(0))
-        params[arch] = (_port_tree(jparams[arch], tcfg),
+    for case in TRAIN_CASES:
+        jcfg, tcfg = _train_cfgs(case)
+        jparams[case] = init_params(jcfg, jax.random.PRNGKey(0))
+        params[case] = (_port_tree(jparams[case], tcfg),
                         {"inputs": _tokens(1, (B, 16)),
                          "labels": _tokens(2, (B, 16))})
     for kvh in SERVE_KV_HEADS:
@@ -181,14 +205,14 @@ def subprocess_main(out_dir: str) -> None:
                      join=False)
     ref = {"coll": _jax_collectives(inp), "train": {}, "serve": {},
            "port_train": {}, "port_serve": {}}
-    for arch in TRAIN_ARCHS:
-        _, tcfg = _train_cfgs(arch)
-        p, batch = params[arch]
-        ref["train"][arch] = _jax_train(arch, jparams[arch], batch)
+    for case in TRAIN_CASES:
+        _, tcfg = _train_cfgs(case)
+        p, batch = params[case]
+        ref["train"][case] = _jax_train(case, jparams[case], batch)
         init, step = make_train_step(tcfg, TrainConfig())
         new_p, new_o, m = step(p, init(p), {k: torch.from_numpy(v)
                                             for k, v in batch.items()})
-        ref["port_train"][arch] = (new_p, new_o,
+        ref["port_train"][case] = (new_p, new_o,
                                    {k: float(v) for k, v in m.items()})
     for kvh in SERVE_KV_HEADS:
         _, tcfg = _serve_cfgs(kvh)
@@ -210,8 +234,8 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
     data = torch.load(out / "inputs.pt", weights_only=False)
     got = {"coll": _port_collectives(data["inputs"], rank)}
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-    got["train"] = {a: _sharded_train(a, mesh, *data["params"][a])
-                    for a in TRAIN_ARCHS}
+    got["train"] = {c: _sharded_train(c, mesh, *data["params"][c])
+                    for c in TRAIN_CASES}
     got["serve"] = {k: _sharded_serve(k, mesh, *data["params"][("serve", k)])
                     for k in SERVE_KV_HEADS}
     if rank == 0:
@@ -255,12 +279,12 @@ def _port_collectives(inp, rank):
     return got
 
 
-def _sharded_train(arch, mesh, p, batch):
+def _sharded_train(case, mesh, p, batch):
     from repro_torch.launch import steps
     from repro_torch.parallel.sharding import distribute, full
     from repro_torch.training.train_loop import TrainConfig, \
         make_train_step
-    _, tcfg = _train_cfgs(arch)
+    _, tcfg = _train_cfgs(case)
     step, (ps, os_, _), specs = steps.build_train_step(tcfg, mesh,
                                                        TrainConfig())
     init, _ = make_train_step(tcfg, TrainConfig())
@@ -359,19 +383,19 @@ def _close_trees(a, b):
             torch.testing.assert_close(x, y, **MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
-def test_built_train_step_matches_unsharded_and_jax(results, arch):
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_built_train_step_matches_unsharded_and_jax(results, case):
     """build_train_step on the 2 x 2 mesh: metrics against the unsharded
     port step and the JAX step, new parameters and optimizer state
-    against the unsharded port step (deepseek-v3: MLA, MoE, the MTP
-    head, sequence parallelism and 8-bit moments)."""
+    against the unsharded port step (``TRAIN_CASES`` says what each case
+    goes through)."""
     ref, got = results
-    new_p, new_o, m = got["train"][arch]
-    up, uo, um = ref["port_train"][arch]
-    assert set(m) == set(um) == set(ref["train"][arch])
+    new_p, new_o, m = got["train"][case]
+    up, uo, um = ref["port_train"][case]
+    assert set(m) == set(um) == set(ref["train"][case])
     for k in m:
         np.testing.assert_allclose(m[k], um[k], **MODEL_TOL, err_msg=k)
-        np.testing.assert_allclose(m[k], ref["train"][arch][k], **MODEL_TOL,
+        np.testing.assert_allclose(m[k], ref["train"][case][k], **MODEL_TOL,
                                    err_msg=k)
     _close_trees(new_p, up)
     for field in ("count", "m", "v"):
