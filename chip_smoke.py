@@ -95,7 +95,15 @@ Dense LM path (slice 2), after the diffusion path's tensors are freed:
    (held in bfloat16 and float32, timed in bfloat16, the path's dtype),
    plus decode attention at one layer of decode_32k, with kernel,
    plain, library and bound times. Times are device times of calls
-   queued back to back (``cuda_ms``).
+   queued back to back (``cuda_ms``). Decode attention's log-sum-exp
+   output (``with_lse``) at the path's largest decode call: (output,
+   lse) against the plain version, the output against the launch
+   without lse, then the split the distribution layer runs over a
+   sequence-sharded cache, on this one card: 16 row blocks, one launch
+   each at its shifted valid_len, joined by ``ref.combine_partials``
+   and held against the whole-cache launch; the lse launch timed beside
+   the launch without it (the kernel line's ``lse`` under decode
+   attention).
 8. The slice: ``serve_prefill`` of 4 prompts of 512 tokens into a cache
    of 1024, then 32 greedy ``serve_decode`` steps, with every launch
    counter zeroed just before and read just after; the counts must
@@ -338,6 +346,12 @@ PLAIN_REC_ITERS = 3
 # decode_32k's outputs are means over 32769 values (typically ~0.01):
 # its bf16 atol is 2e-2 of the largest |output|, not 2e-2 absolute
 DECODE_32K_REL_ATOL = 2e-2
+# decode attention's log-sum-exp: float32 in both versions from the same
+# scores, summed in another order (scores of order 10 at most); the
+# split of a sequence-sharded cache over a 16-way model axis, run on one
+# card as 16 row blocks
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+LSE_BLOCKS = 16
 # the rest of the LM family: qwen2-vl-7b at full size (embedding inputs,
 # M-RoPE over a 16 x 32 patch grid at t = 0, then text positions from
 # 32); deepseek-v3 at full width, its depth cut to the 3 dense prefix
@@ -1800,6 +1814,73 @@ def hold_lm_calls(torch, g, calls, kinds, what=""):
     return rows, worst
 
 
+def hold_decode_lse(torch, g, calls):
+    """Decode attention's log-sum-exp output at the path's largest
+    recorded decode call (bfloat16): (output, lse) against the plain
+    version's, the output against the launch without lse; then the
+    split that ``parallel/local_calls`` runs over a sequence-sharded
+    cache, on one card: the cache cut into LSE_BLOCKS row blocks, one
+    launch each at its valid_len shifted by the block's first row and
+    clipped to its rows, joined by ``ref.combine_partials`` (the same
+    function), against the whole-cache launch; the lse launch timed
+    beside the launch without it. Returns the kernel-line entry."""
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import ref
+    dt = torch.bfloat16
+    shape, valid = max(((shape, extra) for kind, shape, _, extra in calls
+                        if kind == "decode"), key=lambda c: max(c[1]))
+    (qs, ks) = shape
+    q, k, v, vl, nbytes, flops = _decode_inputs(torch, g, qs, ks, valid, dt)
+    B, H, _ = qs
+    T = ks[1]
+    got, lse = tdec.decode_attention(q, k, v, vl, with_lse=True)
+    want, want_lse = ref.decode_attention_ref(q, k, v, vl, with_lse=True)
+    err, tol = _hold(torch, "decode_attention", got, want, "bfloat16")
+    lse_err, _ = _hold(torch, "decode_attention", lse, want_lse, "float32",
+                       LSE_TOL)
+    whole = tdec.decode_attention(q, k, v, vl)
+    _hold(torch, "decode_attention", got, whole, "bfloat16")
+    same = torch.equal(got, whole)
+    if T % LSE_BLOCKS:
+        raise SystemExit(f"decode lse: T {T} is not {LSE_BLOCKS} row blocks")
+    rows = T // LSE_BLOCKS
+    parts = [tdec.decode_attention(
+        q, k[:, r * rows:(r + 1) * rows].contiguous(),
+        v[:, r * rows:(r + 1) * rows].contiguous(),
+        (vl - r * rows).clamp(0, rows).to(torch.int32), with_lse=True)
+        for r in range(LSE_BLOCKS)]
+    joined = ref.combine_partials(
+        torch.stack([o for o, _ in parts]), torch.stack([s for _, s in parts]),
+        lambda t: t.amax(0, keepdim=True),
+        lambda t: t.sum(0, keepdim=True))[0]
+    comb_err, _ = _hold(torch, "decode_attention", joined, whole, "bfloat16")
+    del parts, joined
+    sdpa = _sdpa(torch, q[:, None], k[:, :max(valid)], v[:, :max(valid)],
+                 False) if len(set(valid)) == 1 else None
+    t = _time_rows(torch,
+                   lambda: tdec.decode_attention(q, k, v, vl, with_lse=True),
+                   lambda: ref.decode_attention_ref(q, k, v, vl,
+                                                    with_lse=True),
+                   sdpa, nbytes + 4 * B * H, flops, "bfloat16")
+    t["no_lse_ms"] = cuda_ms(torch, lambda: tdec.decode_attention(q, k, v,
+                                                                  vl))
+    entry = {"shape": (qs, ks), "valid": valid, "max_abs_err": err,
+             "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+             "output_equals_launch_without_lse": same,
+             "blocks": LSE_BLOCKS, "combine_max_abs_err": comb_err,
+             "combine_tol": tol, **t}
+    lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+    log(f"decode_attention with lse q {qs} k/v {ks} valid {valid} bfloat16: "
+        f"max|err| {err:.3e} (tol {tol}), lse max|err| {lse_err:.3e} (tol "
+        f"{LSE_TOL}), output equal to the launch without lse: {same}; "
+        f"{LSE_BLOCKS} row blocks of {rows} joined by combine_partials vs "
+        f"the whole cache: max|err| {comb_err:.3e}; kernel with lse "
+        f"{t['ms']:.4f} ms, without {t['no_lse_ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library {lib} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return entry
+
+
 def check_lm_kernels(torch, calls):
     """Each LM kernel against its plain version at the path's shapes, in
     bfloat16 (the path's dtype; timed) and float32 (held only); decode
@@ -1847,6 +1928,7 @@ def check_lm_kernels(torch, calls):
     del q, k, v
     gc.collect()
     torch.cuda.empty_cache()
+    lse = hold_decode_lse(torch, g, calls)
     source = {"decode_attention": (
                   "cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
                   "src/repro/kernels/decode_attention.py:62"),
@@ -1880,6 +1962,7 @@ def check_lm_kernels(torch, calls):
             "per": f"one {LM_ARCH} prefill ({LM_BATCH}x{LM_PROMPT}) and "
                    f"one decode step, bfloat16: "
                    f"{sum(r['per_path'] for r in path)} launches"}
+    entries["decode_attention"]["lse"] = lse
     return entries, rows
 
 
@@ -3895,7 +3978,7 @@ def main(argv=None) -> int:
         kernels.append({k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "was_ms",
-            "per", "launches_by_path", "routes") if k in e})
+            "per", "launches_by_path", "routes", "lse") if k in e})
     details["wall_s"] = time.perf_counter() - t_start
     if args.out:
         out = Path(args.out)

@@ -11,6 +11,12 @@ cells) under ``--out-dir``. A cell cut by its time limit is recorded as
 ``timeout`` with its wall, never as ok. ``--combine`` prints one table
 of several runs' ``summary.json`` (two torch versions, say);
 ``--compare`` prints two runs' collectives and dot flops cell by cell.
+``--reference`` compiles the JAX package's step for each ok cell of a
+run's ``summary.json`` (``repro.launch.dryrun.run_cell``, one process a
+cell, with ``jax.make_mesh`` wrapped to ``Auto`` axes, on which the
+JAX package's ``constrain`` runs under jax 0.9) and prints port ÷
+reference dot flops and both all-gathers' result bytes; it needs JAX
+and the JAX package, and only its child processes import them.
 
 Usage:
   PYTHONPATH=src python scripts/dryrun_sweep_torch.py --all --both-meshes \
@@ -20,6 +26,8 @@ Usage:
       --cell yi-9b/train_4k/16x16/num_layers=1 --out-dir /tmp/dr
   PYTHONPATH=src python scripts/dryrun_sweep_torch.py --combine \
       A/summary.json B/summary.json
+  PYTHONPATH=src python scripts/dryrun_sweep_torch.py --reference \
+      A/summary.json --jobs 3 --out-dir A/reference
 """
 from __future__ import annotations
 
@@ -83,6 +91,88 @@ def run_one(cell, out_dir: pathlib.Path, timeout: float) -> dict:
     rec.update(arch=arch, shape=shape, mesh=mesh, overrides=list(over),
                process_wall_s=wall)
     return rec
+
+
+# the JAX package's dry run of one cell: argv arch, shape, multi-pod
+# (0/1), overrides as JSON [k=v, ...], record path
+REFERENCE = """
+import ast, json, sys, time
+import jax
+from jax.sharding import AxisType
+_make_mesh = jax.make_mesh
+
+
+def make_mesh(shape, axes, *args, **kwargs):
+    kwargs.setdefault("axis_types", (AxisType.Auto,) * len(axes))
+    return _make_mesh(shape, axes, *args, **kwargs)
+
+
+jax.make_mesh = make_mesh
+from repro.launch.dryrun import run_cell
+arch, shape, multi_pod, over, out = sys.argv[1:]
+overrides = {}
+for kv in json.loads(over):
+    k, v = kv.split("=", 1)
+    try:
+        overrides[k] = ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        overrides[k] = v
+t0 = time.time()
+rec = run_cell(arch, shape, multi_pod == "1", overrides or None)
+rec["wall_s"] = round(time.time() - t0, 2)
+open(out, "w").write(json.dumps(rec))
+"""
+
+
+def run_reference(cell, out_dir: pathlib.Path, timeout: float) -> dict:
+    """The JAX package's record of one cell (``REFERENCE`` in its own
+    process), or {"status": "error"} with the process's stderr."""
+    arch, shape, mesh, over = cell
+    path = record_path(out_dir, cell)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", REFERENCE, arch, shape,
+             "1" if mesh == "2x16x16" else "0", json.dumps(list(over)),
+             str(path)], capture_output=True, text=True, env=env, cwd=ROOT,
+            timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return {"status": "timeout"}
+    if r.returncode or not path.exists():
+        return {"status": "error", "error": r.stderr[-1500:]}
+    return json.loads(path.read_text())
+
+
+def against_reference(summary, out_dir: pathlib.Path, jobs: int,
+                      timeout: float) -> str:
+    """One line per ok cell of a run's ``summary.json``: its dot flops
+    and all-gather result bytes, the reference's, and port ÷ reference;
+    the reference's records land under ``out_dir``."""
+    run = json.loads(pathlib.Path(summary).read_text())
+    cells = [c for c in run["cells"] if c["status"] == "ok"]
+    with cf.ThreadPoolExecutor(max_workers=jobs) as pool:
+        refs = list(pool.map(lambda c: run_reference(
+            (c["arch"], c["shape"], c["mesh"], tuple(c["overrides"])),
+            out_dir, timeout), cells))
+
+    def gathered(rec):
+        return rec["collectives"].get("all-gather", {}).get(
+            "result_bytes", 0.0)
+    lines = [f"torch {run['torch']} against the JAX package"]
+    for c, r in zip(cells, refs):
+        key = f"{c['mesh']} {c['arch']} {c['shape']} " \
+              f"{','.join(c['overrides'])}".rstrip()
+        if r.get("status") != "ok":
+            lines.append(f"{key}: reference {r.get('status')} "
+                         f"{r.get('error', '')[-300:]}")
+            continue
+        lines.append(
+            f"{key}: dot flops port {c['dot_flops']:.6e} reference "
+            f"{r['hlo_dot_flops']:.6e} port/reference "
+            f"{c['dot_flops'] / r['hlo_dot_flops']:.4f}; all-gather result "
+            f"bytes port {gathered(c):.6e} reference {gathered(r):.6e}")
+    return "\n".join(lines)
 
 
 def port_frame(tb: str) -> str:
@@ -174,8 +264,8 @@ def combine(paths) -> str:
 
 def compare(path_a, path_b) -> str:
     """Per cell ok in both runs' ``summary.json`` (say, parent and
-    change): each collective's count and operand bytes, and the dot
-    flops, in run A and run B."""
+    change): each collective's count, operand and result bytes, and the
+    dot flops, in run A and run B."""
     a, b = (json.loads(pathlib.Path(p).read_text()) for p in (path_a, path_b))
     cb = {(c["arch"], c["shape"], c["mesh"]): c for c in b["cells"]}
     lines = []
@@ -190,7 +280,9 @@ def compare(path_a, path_b) -> str:
             x, y = (c["collectives"].get(k, {}) for c in (ca, c2))
             parts.append(f"{k} {int(x.get('count', 0))} -> "
                          f"{int(y.get('count', 0))} ({x.get('operand_bytes', 0):.6e}"
-                         f" -> {y.get('operand_bytes', 0):.6e} B)")
+                         f" -> {y.get('operand_bytes', 0):.6e} B; result "
+                         f"{x.get('result_bytes', 0):.6e} -> "
+                         f"{y.get('result_bytes', 0):.6e} B)")
         lines.append(f"{' '.join(key)}: dot_flops {ca['dot_flops']:.6e} -> "
                      f"{c2['dot_flops']:.6e}; " + "; ".join(parts))
     return "\n".join(lines)
@@ -204,6 +296,10 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", nargs=2, metavar="SUMMARY_JSON",
                     help="print run A's and run B's collectives and dot "
                          "flops per cell, run nothing")
+    ap.add_argument("--reference", metavar="SUMMARY_JSON",
+                    help="compile the JAX package's step for this run's "
+                         "ok cells and print port / reference, run no "
+                         "port cell")
     ap.add_argument("--cell", action="append", default=[],
                     help="ARCH/SHAPE[/MESH[/k=v,k=v]]")
     ap.add_argument("--all", action="store_true",
@@ -223,6 +319,10 @@ def main(argv=None) -> int:
         return 0
     if not args.out_dir:
         ap.error("--out-dir is required to run cells")
+    if args.reference:
+        print(against_reference(args.reference, pathlib.Path(args.out_dir),
+                                args.jobs, args.timeout))
+        return 0
 
     from repro_torch.configs import ARCH_IDS, SHAPES
     cells = [parse_cell(c) for c in args.cell]

@@ -51,6 +51,15 @@
 // splits give 128 blocks for 132 SMs, where one block per pair left 116
 // SMs idle.
 //
+// Log-sum-exp (optional). Calls over disjoint row blocks of one cache
+// (the model ranks of a sequence-sharded cache) are joined outside the
+// kernel from each call's output and log-sum-exp. The cluster's combine
+// already holds the head's (m, l) over all its splits, so with an lse
+// pointer the first split's block writes ln 2 * (m + log2 l) per (batch,
+// head) (m is in log2 units), -inf where l = 0: B * H floats more, no
+// other work. It is a template flag, so the launch without it keeps its
+// code.
+//
 // Plain C interface, built by nvcc into a shared library and called
 // through ctypes (repro_torch/kernels/decode_attention.py).
 
@@ -75,6 +84,7 @@ constexpr int TILE = WARPS * CHUNK;   // split sizes are multiples of this
 constexpr int MAX_G = 16;             // query heads per KV head
 constexpr int MAX_SPLITS = 8;         // blocks of a (portable) cluster
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T, int D>
 struct Cfg {
@@ -195,12 +205,12 @@ __device__ __forceinline__ void stream_chunks(const T* kb, const T* vb,
   cp_async_wait<0>();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
     decode_split(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ valid_len,
-                 T* __restrict__ o, int T_len, int KH, int G, int rows,
-                 float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int T_len,
+                 int KH, int G, int rows, float scale) {
   using C = Cfg<T, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* ring_all = reinterpret_cast<T*>(smem_raw);
@@ -492,6 +502,10 @@ __global__ void __launch_bounds__(THREADS)
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
     for (int r = 0; r < splits; ++r) fm[r][tid] *= inv;
+    if constexpr (LSE) {
+      if (split == 0)
+        lse[head0 / D + tid] = l > 0.f ? (mu + log2f(l)) * LN2 : -INFINITY;
+    }
   }
   __syncthreads();
   const int per = (G * D + splits - 1) / splits;
@@ -511,14 +525,14 @@ __global__ void __launch_bounds__(THREADS)
   cluster.sync();  // peers read this block's partial until here
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 int launch(const void* q, const void* k, const void* v, const int* vl,
-           void* o, int B, int T_len, int KH, int G, int splits, int rows,
-           float scale, cudaStream_t stream) {
+           void* o, float* lse, int B, int T_len, int KH, int G, int splits,
+           int rows, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Cfg<T, D>::smem_bytes;
   static unsigned int smem_set = 0;
-  cudaError_t err =
-      set_smem_once((const void*)decode_split<T, D>, (int)bytes, &smem_set);
+  cudaError_t err = set_smem_once((const void*)decode_split<T, D, LSE>,
+                                  (int)bytes, &smem_set);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * KH, splits, 1);
@@ -532,33 +546,44 @@ int launch(const void* q, const void* k, const void* v, const int* vl,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_split<T, D>, static_cast<const T*>(q),
-                           static_cast<const T*>(k), static_cast<const T*>(v),
-                           vl, static_cast<T*>(o), T_len, KH, G, rows, scale);
+  err = cudaLaunchKernelEx(&cfg, decode_split<T, D, LSE>,
+                           static_cast<const T*>(q), static_cast<const T*>(k),
+                           static_cast<const T*>(v), vl, static_cast<T*>(o),
+                           lse, T_len, KH, G, rows, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool LSE>
 int dispatch_d(const void* q, const void* k, const void* v, const int* vl,
-               void* o, int B, int T_len, int KH, int G, int D, int splits,
-               int rows, float scale, cudaStream_t stream) {
+               void* o, float* lse, int B, int T_len, int KH, int G, int D,
+               int splits, int rows, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, vl, o, B, T_len, KH, G, splits, rows,
-                           scale, stream);
+      return launch<T, 16, LSE>(q, k, v, vl, o, lse, B, T_len, KH, G, splits,
+                                rows, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, vl, o, B, T_len, KH, G, splits, rows,
-                           scale, stream);
+      return launch<T, 32, LSE>(q, k, v, vl, o, lse, B, T_len, KH, G, splits,
+                                rows, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, vl, o, B, T_len, KH, G, splits, rows,
-                           scale, stream);
+      return launch<T, 64, LSE>(q, k, v, vl, o, lse, B, T_len, KH, G, splits,
+                                rows, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, vl, o, B, T_len, KH, G, splits, rows,
-                            scale, stream);
+      return launch<T, 128, LSE>(q, k, v, vl, o, lse, B, T_len, KH, G,
+                                 splits, rows, scale, stream);
     default:
       return -1;
   }
+}
+
+template <typename T>
+int dispatch_lse(const void* q, const void* k, const void* v, const int* vl,
+                 void* o, float* lse, int B, int T_len, int KH, int G, int D,
+                 int splits, int rows, float scale, cudaStream_t stream) {
+  return lse ? dispatch_d<T, true>(q, k, v, vl, o, lse, B, T_len, KH, G, D,
+                                   splits, rows, scale, stream)
+             : dispatch_d<T, false>(q, k, v, vl, o, lse, B, T_len, KH, G, D,
+                                    splits, rows, scale, stream);
 }
 
 }  // namespace
@@ -566,27 +591,28 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* vl,
 extern "C" {
 
 // q: (B, KH * G, D); k, v: (B, T, KH, D); valid_len: (B,) int32;
-// o: (B, KH * G, D); all contiguous, 16-byte aligned, on the device of
-// `stream`. dtype 0 = float32, 1 = bfloat16. G <= 16. `splits` (1..8)
-// blocks share each (batch, KV head), split s taking cache rows
-// [s * rows, (s + 1) * rows), rows a multiple of 64 with
-// splits * rows >= T. Returns 0, a cudaError_t, or -1 for an unsupported
-// D, G, split or dtype.
+// o: (B, KH * G, D); lse: (B, KH * G) float32, or null (not written);
+// all contiguous, 16-byte aligned, on the device of `stream`. dtype
+// 0 = float32, 1 = bfloat16. G <= 16. `splits` (1..8) blocks share each
+// (batch, KV head), split s taking cache rows [s * rows, (s + 1) * rows),
+// rows a multiple of 64 with splits * rows >= T. Returns 0, a
+// cudaError_t, or -1 for an unsupported D, G, split or dtype.
 int decode_attention_forward(const void* q, const void* k, const void* v,
-                             const void* valid_len, void* o, int B, int T,
-                             int KH, int G, int D, int splits, int rows,
+                             const void* valid_len, void* o, void* lse, int B,
+                             int T, int KH, int G, int D, int splits, int rows,
                              float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* vl = static_cast<const int*>(valid_len);
   if (G < 1 || G > MAX_G || splits < 1 || splits > MAX_SPLITS ||
       rows < 1 || rows % TILE || (long long)splits * rows < T)
     return -1;
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, vl, o, B, T, KH, G, D, splits, rows,
-                             scale, s);
+    return dispatch_lse<float>(q, k, v, vl, o, l, B, T, KH, G, D, splits,
+                               rows, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, vl, o, B, T, KH, G, D, splits,
-                                     rows, scale, s);
+    return dispatch_lse<__nv_bfloat16>(q, k, v, vl, o, l, B, T, KH, G, D,
+                                       splits, rows, scale, s);
   return -1;
 }
 

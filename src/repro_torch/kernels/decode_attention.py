@@ -17,7 +17,11 @@ kernel splits the cache of each (batch, KV head) across the blocks of a
 thread-block cluster and combines their partials on chip, in one launch;
 ``plan_splits`` (pure Python, tested on the CPU) picks the split from T,
 B * KH and the card's SM count, never from ``valid_len``, which stays on
-the device. See the source for the design.
+the device. See the source for the design. On request it also writes
+each head's log-sum-exp (``with_lse``), from the cluster's combined
+(m, l), so that calls over disjoint row blocks of one cache (the model
+ranks of a sequence-sharded cache, ``parallel/local_calls``) can be
+joined by ``ref.combine_partials``.
 """
 from __future__ import annotations
 
@@ -65,7 +69,7 @@ def _forward():
     if _FN is None:
         lib = build.load("decode_attention")
         fn = lib.decode_attention_forward
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
@@ -75,11 +79,13 @@ def _forward():
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
+                     valid_len: torch.Tensor, *, with_lse: bool = False):
     """Launch the kernel. q: (B,H,D); k, v: (B,T,KH,D) with H = KH*G,
     G <= 16; contiguous, 16-byte aligned CUDA tensors of one dtype
     (float32 or bfloat16); valid_len: (B,) int32 on the same device.
-    Raises on anything the kernel does not take; never falls back."""
+    Returns the output, or with ``with_lse`` (output, lse), lse (B, H)
+    float32 (-inf where no row is live). Raises on anything the kernel
+    does not take; never falls back."""
     for name, t in (("q", q), ("k", k), ("v", v), ("valid_len", valid_len)):
         if not t.is_cuda:
             raise ValueError(f"decode_attention kernel: {name} is not a "
@@ -112,20 +118,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention kernel: valid_len must be "
                          f"int32 of shape ({B},)")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if q.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     fn, errstr = _forward()
     splits, rows = plan_splits(T, B * KH, sm_count(q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 valid_len.data_ptr(), out.data_ptr(), B, T, KH, H // KH, D,
+                 valid_len.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), B, T, KH, H // KH, D,
                  splits, rows, 1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError("decode_attention kernel launch failed: "
                            + errstr(err).decode())
     decode_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 decode_attention.launches = 0

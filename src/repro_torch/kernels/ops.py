@@ -77,9 +77,10 @@ def _flash_work(q, k, v, **_):
     return 4.0 * B * H * Sq * k.shape[1] * D, 2 * _bytes(q)
 
 
-def _decode_work(q, k, v, valid_len):
+def _decode_work(q, k, v, valid_len, *, with_lse=False):
     B, H, D = q.shape
-    return 4.0 * B * H * k.shape[1] * D, 2 * _bytes(q)
+    lse = B * H * 4 if with_lse else 0
+    return 4.0 * B * H * k.shape[1] * D, 2 * (_bytes(q) + lse)
 
 
 def _groupnorm_work(x, scale, bias, **_):
@@ -194,17 +195,23 @@ def fused_groupnorm(x, scale, bias, *, groups: int, act: bool = True,
 
 
 @_counted("decode_attention")
-def decode_attention(q, k, v, valid_len):
+def decode_attention(q, k, v, valid_len, *, with_lse: bool = False):
     """q: (B,H,D) one token; k, v: (B,T,KH,D); valid_len: (B,) int32.
-    See ``ref.decode_attention_ref``."""
+    With ``with_lse`` returns (out, lse (B, H) float32). See
+    ``ref.decode_attention_ref``."""
     kind = _device_type(q, "decode_attention")
     if kind == "meta":
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return (out, q.new_empty(q.shape[:2], dtype=torch.float32)) \
+            if with_lse else out
     if kind == "cpu":           # contiguous, as the kernel writes it
-        return ref.decode_attention_ref(q, k, v, valid_len).contiguous()
+        out = ref.decode_attention_ref(q, k, v, valid_len, with_lse=with_lse)
+        return (out[0].contiguous(), out[1]) if with_lse \
+            else out.contiguous()
     _refuse_grad("decode_attention", q, k, v)
     return _decode.decode_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), valid_len.contiguous())
+                                    v.contiguous(), valid_len.contiguous(),
+                                    with_lse=with_lse)
 
 
 @_counted("fused_rmsnorm")

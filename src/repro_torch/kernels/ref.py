@@ -70,13 +70,16 @@ def groupnorm_silu_ref(x, scale, bias, *, groups: int, eps: float = 1e-5,
     return out.reshape(shape).to(x.dtype)
 
 
-def decode_attention_ref(q, k, v, valid_len):
+def decode_attention_ref(q, k, v, valid_len, *, with_lse: bool = False):
     """One new token per sequence against a KV cache. q: (B,H,D);
     k, v: (B,T,KH,D) with H = KH*G; valid_len: (B,) int, the live cache
     entries of each sequence (columns at or past it are masked). fp32
     scores and softmax, output ``acc / max(l, 1e-30)`` in q's dtype: the
     TPU kernel's arithmetic, so a sequence with ``valid_len = 0`` gets
-    zeros (the JAX package's jnp oracle gives NaN there)."""
+    zeros (the JAX package's jnp oracle gives NaN there). With
+    ``with_lse`` also the log-sum-exp of each head's scaled scores,
+    (B, H) float32, -inf where no column is live: what
+    ``combine_partials`` needs to join calls over disjoint row blocks."""
     B, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -89,8 +92,31 @@ def decode_attention_ref(q, k, v, valid_len):
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     acc = torch.einsum("bkgt,btkd->bkgd", p, v.float())
-    o = acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return o.reshape(B, H, D).to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (acc / l.clamp_min(1e-30)).reshape(B, H, D).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, (m + torch.log(l)).reshape(B, H)
+
+
+def combine_partials(o, lse, reduce_max, reduce_sum):
+    """The softmax attention over the union of disjoint key blocks, from
+    each block's own normalised output ``o`` (..., D) and log-sum-exp
+    ``lse`` (...) (``decode_attention_ref(..., with_lse=True)`` or the
+    kernel's): ``M = max_r lse_r``, then ``sum_r exp(lse_r - M) o_r /
+    sum_r exp(lse_r - M)``, in float32, output in o's dtype.
+    ``reduce_max`` and ``reduce_sum`` reduce a tensor over the blocks
+    and return a result that broadcasts against it: all-reduces over
+    the ranks that hold the blocks, or ``amax``/``sum`` with
+    ``keepdim`` over a dim that stacks them. A block with no live key
+    (lse = -inf) weighs 0; where no block has one the result is zeros,
+    as the kernel gives for ``valid_len = 0``."""
+    m = reduce_max(lse)
+    w = torch.exp(lse - torch.where(torch.isfinite(m), m,
+                                    torch.zeros_like(m)))
+    num = reduce_sum(w[..., None] * o.float())
+    den = reduce_sum(w)
+    return (num / den.clamp_min(1e-30)[..., None]).to(o.dtype)
 
 
 def rmsnorm_ref(x, scale, *, eps: float = 1e-5, residual=None):

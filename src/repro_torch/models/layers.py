@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.impls import resolve_kernel_impl
 from repro_torch.parallel.local_calls import (maybe_local, replicated_call,
+                                              rows_product, split_by_rows,
                                               write_rows)
 from repro_torch.parallel.sharding import (constrain, foldable_grad,
                                            gather_last, placed_grad,
@@ -220,8 +221,15 @@ def merge_heads(out, wo):
     """out (B, S, N, hd) @ wo (N, hd, D) -> (B, S, D), the heads merged.
     On DTensors the gradients of the merged output and of the flat weight
     are gathered where the backward's views could not split them back
-    into N heads (``splittable_grad``: 28 heads on 16)."""
+    into N heads (``splittable_grad``: 28 heads on 16). An ``out`` split
+    by query rows (attention's row plan, ``local_calls``) is multiplied
+    on each rank's own rows (``local_calls.rows_product``), as XLA
+    computes the JAX package's product under its sequence split: the
+    output comes back split by rows, and no rank multiplies every row."""
     B, S, N = out.shape[:3]
+    if split_by_rows(out):
+        return rows_product(out.reshape(B, S, -1),
+                            wo.reshape(-1, wo.shape[-1]))
     flat = splittable_grad(out.reshape(B, S, -1), -1, N)
     return flat @ splittable_grad(wo.reshape(-1, wo.shape[-1]), 0, N)
 
@@ -352,7 +360,8 @@ def attn_apply(params, cfg, x, *, positions, cache=None, cache_index=0,
                 q, ck, cv, causal=True,
                 q_positions=slots.expand(B, S) if qpos is None else qpos,
                 kv_valid_len=(slots[-1] + 1).expand(B))
-    out = constrain(out, "batch", None, "heads", None)
+    if not split_by_rows(out):
+        out = constrain(out, "batch", None, "heads", None)
     y = merge_heads(out, params["wo"])
     return constrain(y, "batch", "seq", "act_embed"), cache
 

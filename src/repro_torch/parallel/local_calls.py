@@ -10,24 +10,59 @@ attention (``layers.gqa_attention``, planned as flash attention) and the
 sLSTM recurrence (``xlstm.slstm_scan``: by batch, its recurrent weight
 replicated), whose steps DTensor would dispatch one small op at a time:
 
-  * every operand is redistributed to its plan, the placements the JAX
-    package's ``constrain`` gives it: batch on the data axes; for
-    attention, heads and KV heads on the model axis where the model
-    axis divides both, else both replicated (a rank then computes every
-    head, so that its query heads and KV heads match); a
-    sequence-sharded cache (``cache_seq``, where the KV heads do not
-    divide the model axis) is gathered along the sequence for the call,
-    so decode attention moves the layer's whole K/V to every model rank
-    once a step; a norm's operands keep their placements with the
-    normalised (last) dim gathered; SwiGLU's ``up`` takes ``gate``'s;
-    the recurrences' operands are split by batch alone;
+  * every operand is redistributed to its plan: batch on the data axes,
+    as the JAX package's ``constrain`` gives it; a norm's operands keep
+    their placements with the normalised (last) dim gathered; SwiGLU's
+    ``up`` takes ``gate``'s; the recurrences' operands are split by
+    batch alone;
   * the kernel (or, on the ``unfused`` route, its plain version, which
     autograd differentiates through ``to_local``/``from_local``) runs
     on the local tensors, one launch a call as on one card;
-  * its output comes back as a DTensor with the plan's placements, and
-    a state the kernel writes in place (the mLSTM's C, n, m, the scan's
-    h) is copied back into the DTensor's own shard where the plan
-    moved it.
+  * its output comes back as a DTensor with the plan's placements (the
+    first operand's), and a state the kernel writes in place (the
+    mLSTM's C, n, m, the scan's h) is copied back into the DTensor's own
+    shard where the plan moved it.
+
+Attention (``_attention``) splits the work over the model axis as the
+JAX package's ``gqa_attention`` does (it repeats the KV heads to the
+query heads, so that the heads split, and leaves the scores over a
+sequence-sharded cache unsplit), in this order:
+
+  * heads and KV heads both divide the model axis: both split by heads;
+  * decode (``decode_attention``) over a cache the sequence split lays
+    out (``cache_seq``, where the KV heads do not divide): q whole on
+    the model axis, the cache kept split; each rank attends over its own
+    rows (``valid_len`` shifted by its row offset and clipped to its
+    rows) and returns its output and log-sum-exp, which three small
+    all-reduces over the model axis join (``ref.combine_partials``): no
+    cache gather;
+  * the query heads divide and the KV heads do not: q split by heads,
+    K/V whole on the model axis, and each rank index-selects the KV
+    heads its query heads read (query head h reads KV head h // G): one
+    where its heads lie in one group (local G its head count), its
+    groups' where they fall in whole groups (local G = G), else one per
+    query head (local G 1). Their gradient is a partial sum over the
+    model axis, into which the selection's backward adds. A prompt
+    chunk over a sequence-sharded cache gathers the cache first;
+  * fresh K/V (``flash_attention`` without ``kv_len`` or ``q_offset``,
+    ``gqa_attention`` without ``kv_valid_len``, as many keys as queries)
+    whose query rows divide the model axis: q and its positions split by
+    rows, K/V whole; a call without positions (the slots' mask) is given
+    ``arange(S)``, so each rank's call is the same function of its
+    shard; the output comes back split by rows, and the output
+    projection (``layers.merge_heads``) multiplies each rank's own rows
+    (``rows_product``, a local product with the weight gathered), as
+    XLA computes the JAX package's under its sequence split;
+  * anything else keeps the replicated plan: q and K/V whole on the
+    model axis, every rank computing every head. That is a prompt chunk
+    over a cache (``kv_len``, ``q_offset``, ``kv_valid_len``: a
+    sequence-sharded cache is gathered for it) whose query heads do not
+    divide; decode over a cache left whole (its length does not divide
+    the model axis) whose query heads do not divide; fresh K/V whose
+    heads and rows do not divide; and ``gqa_attention`` at one query
+    over a cache, which no path calls (a decode step takes
+    ``decode_attention`` on both routes). On a model axis of one rank
+    every call takes this plan or the first, as on one card.
 
 A plain tensor among the operands stands for a replicated one (as under
 ``implicit_replication``). A partial sum (``Partial``) is reduced by the
@@ -45,12 +80,17 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.parallel import sharding as S
 
 # attention's operands' logical axes (the JAX package's constrain of q,
-# k and v)
+# k and v; decode's q has no sequence dim), and the cache's under the
+# sequence split
 _ATTN_Q = ("batch", None, "heads", None)
+_DECODE_Q = ("batch", "heads", None)
 _ATTN_KV = ("batch", None, "kv_heads", None)
+_CACHE_SEQ = ("batch", "cache_seq", None, None)
+_ATTENTION = ("flash_attention", "gqa_attention", "decode_attention")
 
 
 def _dtensor_type():
@@ -91,34 +131,133 @@ def _grad_placements(pl, out_pl) -> tuple:
                  else p for p, o in zip(pl, out_pl))
 
 
-def _attention_plans(q, k, q_axes, kv_axes):
-    """The placements of q and of k, v: heads and KV heads on their axes
-    where both divide, else both replicated."""
+def _split_dims(pl, dim: int) -> list:
+    """The mesh dims on which placements ``pl`` split tensor dim ``dim``."""
+    return [i for i, p in enumerate(pl) if getattr(p, "dim", -1) == dim]
+
+
+def _leading(pl, ndim: int) -> tuple:
+    """Placements ``pl`` for a tensor that holds only the first ``ndim``
+    dims of the planned one (positions (B, Sq) of q, lengths (B,))."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if isinstance(p, Shard) and p.dim < ndim else Replicate()
+                 for p in pl)
+
+
+def _kv_heads_read(q, qp, hq: int, kv_heads: int):
+    """The KV heads that this rank's query heads read (q split by heads
+    under ``qp``, its head dim ``hq``), as an index tensor: one for heads
+    within one group, the groups for heads in whole groups, else one per
+    query head. The count is the same on every rank."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    local, offset = compute_local_shape_and_global_offset(
+        q.shape, q.device_mesh, qp)
+    n, h0 = local[hq], offset[hq]
+    G = q.shape[hq] // kv_heads
+    if G % n == 0:
+        idx = [h0 // G]
+    elif n % G == 0:
+        idx = list(range(h0 // G, (h0 + n) // G))
+    else:
+        idx = [h // G for h in range(h0, h0 + n)]
+    return torch.tensor(idx, dtype=torch.int64, device=q.to_local().device)
+
+
+def _fresh(name: str, q, k, kwargs) -> bool:
+    """Attention over fresh K/V: as many keys as queries, no cache mask."""
+    if q.shape[1] != k.shape[1] or kwargs.get("kv_valid_len") is not None:
+        return False
+    return name == "gqa_attention" or (kwargs.get("kv_len") is None
+                                       and not kwargs.get("q_offset"))
+
+
+def _attention(name: str, fn: Callable, mesh, args: list, kwargs: dict):
+    """``call`` for attention: the plans of the module note."""
+    decode = name == "decode_attention"
+    q, k = (_as_dtensor(t, mesh) for t in args[:2])
+    q_axes = _DECODE_Q if decode else _ATTN_Q
+    hq = q_axes.index("heads")
     qp = S.logical_placements(q, *q_axes)
-    kp = S.logical_placements(k, *kv_axes)
-    hq, hk = q_axes.index("heads"), kv_axes.index("kv_heads")
-    q_heads = [i for i, pl in enumerate(qp) if getattr(pl, "dim", -1) == hq]
-    k_heads = [i for i, pl in enumerate(kp) if getattr(pl, "dim", -1) == hk]
-    if q_heads != k_heads:
-        q_axes = tuple(None if a == "heads" else a for a in q_axes)
-        kv_axes = tuple(None if a == "kv_heads" else a for a in kv_axes)
-        qp = S.logical_placements(q, *q_axes)
-        kp = S.logical_placements(k, *kv_axes)
-    return qp, kp
+    kp = S.logical_placements(k, *_ATTN_KV)
+    q_heads = _split_dims(qp, hq)
+    if q_heads and q_heads == _split_dims(kp, 2):
+        return _run_attention(fn, mesh, args, kwargs, qp, kp)
+    kp = S.logical_placements(k, "batch", None, None, None)
+    whole_q = S.logical_placements(q, *(a if a == "batch" else None
+                                        for a in q_axes))
+    if decode:
+        cp = S.logical_placements(k, *_CACHE_SEQ)
+        if _split_dims(cp, 1):
+            return _decode_over_rows(fn, mesh, args, whole_q, cp)
+    if q_heads:
+        return _run_attention(fn, mesh, args, kwargs, qp, kp,
+                              select=_kv_heads_read(q, qp, hq, k.shape[2]))
+    if not decode and _fresh(name, q, k, kwargs):
+        rows = S.logical_placements(q, "batch", "heads", None, None)
+        if _split_dims(rows, 1):
+            if kwargs.get("q_positions") is None:
+                B, Sq = q.shape[:2]
+                kwargs["q_positions"] = torch.arange(
+                    Sq, dtype=torch.int32,
+                    device=q.to_local().device).expand(B, Sq)
+            return _run_attention(fn, mesh, args, kwargs, rows, kp)
+    return _run_attention(fn, mesh, args, kwargs, whole_q, kp)
+
+
+def _run_attention(fn: Callable, mesh, args: list, kwargs: dict, qp, kp,
+                   select=None):
+    """``fn`` on local shards: q (and the output) under ``qp``, K/V under
+    ``kp`` with the KV heads ``select`` taken locally where given, the
+    positions and lengths under ``qp``'s batch (and row) split."""
+    from torch.distributed.tensor import DTensor
+    keys = [k for k in ("q_positions", "kv_valid_len")
+            if kwargs.get(k) is not None]
+    operands = [_as_dtensor(t, mesh) for t in args] + \
+        [_as_dtensor(kwargs[k], mesh) for k in keys]
+    plans = [qp, kp, kp] + [_leading(qp, t.ndim) for t in operands[3:]]
+    locs = [_local(t, pl, _grad_placements(pl, qp))
+            for t, pl in zip(operands, plans)]
+    if select is not None:
+        locs[1] = locs[1].index_select(2, select)
+        locs[2] = locs[2].index_select(2, select)
+    kwargs.update(zip(keys, locs[len(args):]))
+    out = fn(*locs[:len(args)], **kwargs)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def _decode_over_rows(fn: Callable, mesh, args: list, qp, cp):
+    """Decode attention over a sequence-sharded cache (under ``cp``):
+    each rank over its own rows, its output and log-sum-exp joined by
+    all-reduces over the mesh dims that split the rows."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    q, k, v, vl = (_as_dtensor(t, mesh) for t in args)
+    k_l, v_l = _local(k, cp), _local(v, cp)
+    _, offset = compute_local_shape_and_global_offset(k.shape, mesh, cp)
+    vl_l = (_local(vl, _leading(qp, 1)) - offset[1]).clamp(
+        0, k_l.shape[1]).to(torch.int32)
+    o, lse = fn(_local(q, qp), k_l, v_l, vl_l, with_lse=True)
+    dims = _split_dims(cp, 1)
+
+    def over(op):
+        def reduce(t):
+            for d in dims:
+                t = funcol.all_reduce(t, op, (mesh, d))
+            return t
+        return reduce
+    o = ref.combine_partials(o, lse, over("max"), over("sum"))
+    return DTensor.from_local(o, mesh, qp, run_check=False)
 
 
 def _plan(name: str, ops: list) -> list:
     """Placements for each operand of kernel ``name`` (all DTensors)."""
-    if name in ("flash_attention", "gqa_attention"):
-        q, k = ops[0], ops[1]
-        qp, kp = _attention_plans(q, k, _ATTN_Q, _ATTN_KV)
-        # then q_positions (B, Sq), kv_valid_len (B,): by batch
-        return [qp, kp, kp] + [S.logical_placements(t, "batch")
-                               for t in ops[3:]]
-    if name == "decode_attention":
-        q, k = ops[0], ops[1]
-        qp, kp = _attention_plans(q, k, ("batch", "heads", None), _ATTN_KV)
-        return [qp, kp, kp, S.logical_placements(ops[3], "batch")]
+    if name == "rows_product":                 # x (B, S, K) as it is, w
+        from torch.distributed.tensor import Replicate
+        return [tuple(ops[0].placements),
+                (Replicate(),) * ops[1].device_mesh.ndim]
     if name == "fused_rmsnorm":
         x = ops[0]
         pl = S.last_gathered(x)
@@ -150,9 +289,7 @@ def _plan(name: str, ops: list) -> list:
 # the operands each kernel writes in place (by position)
 _IN_PLACE = {"mlstm_chunk": (5, 6, 7), "mamba_scan": (6,)}
 # the keyword operands that are tensors, in the order ``_plan`` takes them
-_TENSOR_KWARGS = {"flash_attention": ("q_positions",),
-                  "gqa_attention": ("q_positions", "kv_valid_len"),
-                  "fused_rmsnorm": ("residual",)}
+_TENSOR_KWARGS = {"fused_rmsnorm": ("residual",)}
 
 
 def call(name: str, fn: Callable, args: Sequence, kwargs: Dict):
@@ -163,6 +300,8 @@ def call(name: str, fn: Callable, args: Sequence, kwargs: Dict):
                 if isinstance(a, DTensor)).device_mesh
     args = list(args)
     kwargs = dict(kwargs)
+    if name in _ATTENTION:
+        return _attention(name, fn, mesh, args, kwargs)
     pos = [i for i, a in enumerate(args) if torch.is_tensor(a)]
     keys = [k for k in _TENSOR_KWARGS.get(name, ())
             if kwargs.get(k) is not None]
@@ -260,6 +399,21 @@ def replicated_call(fn: Callable, *tensors):
     if isinstance(out, tuple):
         return tuple(wrap(o) for o in out)
     return wrap(out)
+
+
+def split_by_rows(x) -> bool:
+    """Whether ``x`` is a DTensor split on dim 1: attention's output under
+    the row plan."""
+    return isinstance(x, _dtensor_type()) and bool(
+        _split_dims(x.placements, 1))
+
+
+def rows_product(x, w):
+    """``x @ w`` for an ``x`` (B, S, K) split by rows (and batch), on
+    each rank's own rows with ``w`` (K, N) whole (gathered); the output
+    keeps ``x``'s placements, and ``w``'s gradient is a partial sum over
+    the mesh dims that split ``x``."""
+    return call("rows_product", torch.matmul, (x, w), {})
 
 
 def maybe_local(name: str, fn: Callable) -> Callable:

@@ -456,8 +456,10 @@ def test_dryrun_cell_on_a_fake_group(cells, shape):
     """Reduced yi-9b (its fields as overrides) on the 16 x 16 mesh of
     256 fake ranks: status ok,
     argument bytes the sum of rank 0's shard sizes under ``named_safe``'s
-    specs (each dim over its axes' product), work counted, at least one
-    all-gather, the fields the roofline reads."""
+    specs (each dim over its axes' product), work counted, collectives
+    counted (train: all-gathers; decode: the all-reduces that join each
+    rank's attention over its rows of the sequence-sharded cache, which
+    is not gathered), the fields the roofline reads."""
     got = cells[shape]
     rec = got["rec"]
     assert rec["status"] == "ok", rec
@@ -467,7 +469,11 @@ def test_dryrun_cell_on_a_fake_group(cells, shape):
     assert rec["argument_size_in_bytes"] == got["want_args"] > 0
     assert rec["output_size_in_bytes"] > 0
     assert rec["dot_flops"] > 0 and rec["traffic_bytes"] > 0
-    assert rec["collectives"]["all-gather"]["count"] > 0
+    if shape == "decode_32k":
+        assert rec["collectives"]["all-reduce"]["count"] > 0
+        assert "all-gather" not in rec["collectives"]
+    else:
+        assert rec["collectives"]["all-gather"]["count"] > 0
     assert rec["temp_size_in_bytes"] is None
     assert set(rec["counted_by"]) >= {
         "dot_flops", "traffic_bytes", "collectives",

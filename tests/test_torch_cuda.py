@@ -12,7 +12,9 @@ version's matmuls); bfloat16 2e-2 (one bfloat16 rounding of outputs of
 order 1). The recurrences (mLSTM, selective scan) carry fp32 state in
 both versions, so their fp32 outputs and final states are held at 1e-4
 (sums over up to 384 rows in another order, compounded over up to 512
-steps) and their bf16 outputs at 2e-2.
+steps) and their bf16 outputs at 2e-2. Decode attention's log-sum-exp
+is float32 in both versions from the same scores, summed in another
+order: 1e-4 (scores of order 10 at most).
 """
 import dataclasses
 
@@ -38,6 +40,7 @@ FA_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 GN_TOL = dict(atol=3e-5, rtol=3e-5)
 EW_TOL = {torch.float32: GN_TOL,
           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
 @pytest.fixture
@@ -353,6 +356,61 @@ def test_decode_kernel_valid_len_zero_gives_zeros(cuda):
     assert not got[0].any() and not got[2].any()
     torch.testing.assert_close(got, ref.decode_attention_ref(q, k, k, vl),
                                **FA_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KH,D,T,valid", [
+    (4, 32, 4, 128, 1024, (513, 520, 530, 544)),   # Yi-9B served decode
+    (6, 16, 2, 64, 1000, (0, 1, 63, 64, 65, 1000)),  # split edges, empty
+    (2, 16, 1, 32, 77, (77, 3)),                   # the largest group
+])
+def test_decode_kernel_lse_matches_plain(cuda, dtype, B, H, KH, D, T,
+                                         valid):
+    """The kernel's (output, log-sum-exp) against the plain version's:
+    the output as without lse, -inf where no row is live."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(g, (B, H, D), cuda, dtype)
+    k = _randn(g, (B, T, KH, D), cuda, dtype)
+    v = _randn(g, (B, T, KH, D), cuda, dtype)
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    before = tdecode.decode_attention.launches
+    got, lse = tdecode.decode_attention(q, k, v, vl, with_lse=True)
+    torch.cuda.synchronize()
+    assert tdecode.decode_attention.launches == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    want, want_lse = ref.decode_attention_ref(q, k, v, vl, with_lse=True)
+    torch.testing.assert_close(got, want, **FA_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    torch.testing.assert_close(got, tdecode.decode_attention(q, k, v, vl),
+                               **FA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_row_blocks_combine_to_whole_cache(cuda, dtype):
+    """A sequence-sharded cache's split on one card: the cache cut into
+    16 row blocks, one launch each at its valid_len shifted by the
+    block's first row and clipped to its rows, joined by
+    ``ref.combine_partials``, against one launch over the whole cache
+    (an empty sequence, one live in the first block only)."""
+    B, H, KH, D, T, blocks = 4, 32, 4, 128, 1024, 16
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = _randn(g, (B, H, D), cuda, dtype)
+    k = _randn(g, (B, T, KH, D), cuda, dtype)
+    v = _randn(g, (B, T, KH, D), cuda, dtype)
+    vl = torch.tensor((0, 40, 530, T), dtype=torch.int32, device=cuda)
+    rows = T // blocks
+    parts = [tdecode.decode_attention(
+        q, k[:, r * rows:(r + 1) * rows].contiguous(),
+        v[:, r * rows:(r + 1) * rows].contiguous(),
+        (vl - r * rows).clamp(0, rows).to(torch.int32), with_lse=True)
+        for r in range(blocks)]
+    got = ref.combine_partials(
+        torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
+        lambda t: t.amax(0, keepdim=True), lambda t: t.sum(0, keepdim=True))[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and not got[0].any()
+    torch.testing.assert_close(got, tdecode.decode_attention(q, k, v, vl),
+                               **FA_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -265,6 +265,63 @@ def test_decode_split_plan_covers_the_cache():
     assert tdecode.plan_splits(33280, 512, 132) == (1, 33280)
 
 
+def _decode_case(seed, B, H, KH, D, T):
+    q, k, v = _normal(seed, (B, H, D), (B, T, KH, D), (B, T, KH, D))
+    return _torch(q), _torch(k), _torch(v)
+
+
+def test_decode_attention_lse_matches_logsumexp():
+    """The plain version's log-sum-exp against ``torch.logsumexp`` of the
+    scaled, masked scores written out directly: -inf for a sequence with
+    no live row; the output is the one without lse, bit for bit, and the
+    dispatcher passes both through on the CPU."""
+    B, H, KH, D, T = 4, 6, 2, 32, 96
+    q, k, v = _decode_case(21, B, H, KH, D, T)
+    vl = torch.tensor([0, 1, 40, T], dtype=torch.int32)
+    o, lse = ref.decode_attention_ref(q, k, v, vl, with_lse=True)
+    kr = k.repeat_interleave(H // KH, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q, kr) / math.sqrt(D)
+    s = s.masked_fill(torch.arange(T)[None, None, :] >= vl[:, None, None],
+                      float("-inf"))
+    want = torch.logsumexp(s, dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.isneginf(lse[0]).all() and torch.isfinite(lse[1:]).all()
+    torch.testing.assert_close(lse, want, **TOL)
+    assert torch.equal(o, ref.decode_attention_ref(q, k, v, vl))
+    o2, lse2 = ops.decode_attention(q, k, v, vl, with_lse=True)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+def test_decode_combine_of_row_blocks_matches_whole_cache():
+    """``combine_partials`` over the plain version's (output, lse) on 4
+    row blocks of the cache, each at its valid_len shifted by
+    the block's first row and clipped to its rows (what each model rank
+    of a sequence-sharded cache computes), against one call over the
+    whole cache and the JAX kernel: a sequence live in the first block
+    only, one with valid_len = 0 (zeros, never NaN), one across three
+    blocks and one across all."""
+    B, H, KH, D, T, blocks = 4, 8, 2, 32, 128, 4
+    q, k, v = _decode_case(22, B, H, KH, D, T)
+    vl = torch.tensor([20, 0, 77, T], dtype=torch.int32)
+    rows = T // blocks
+    parts = [ref.decode_attention_ref(
+        q, k[:, r * rows:(r + 1) * rows], v[:, r * rows:(r + 1) * rows],
+        (vl - r * rows).clamp(0, rows), with_lse=True)
+        for r in range(blocks)]
+    o = torch.stack([p[0] for p in parts])
+    lse = torch.stack([p[1] for p in parts])
+    assert torch.isneginf(lse[1:, 0]).all()       # live in block 0 only
+    got = ref.combine_partials(o, lse, lambda t: t.amax(0, keepdim=True),
+                               lambda t: t.sum(0, keepdim=True))[0]
+    assert torch.isfinite(got).all() and not got[1].any()
+    torch.testing.assert_close(got, ref.decode_attention_ref(q, k, v, vl),
+                               **TOL)
+    want = jops.decode_attention(_jax(q.numpy()), _jax(k.numpy()),
+                                 _jax(v.numpy()), jnp.asarray(vl.numpy()),
+                                 impl="interpret", block_k=64)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
 def test_flash_route_follows_dtype_and_head_dim():
     """At head dims 64 and 128 both dtypes take tensor cores (bf16 on
     wgmma, float32 as 3xTF32, every diffusion call); 16 and 32 stay on

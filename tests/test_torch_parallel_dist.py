@@ -18,6 +18,9 @@ the unsharded port step and the JAX step (the train step's parameters
 and moments against the unsharded port step, whose own parity with the
 JAX step, parameters included, ``tests/test_torch_train.py`` holds;
 8-bit moments within one quantisation level, their scales at 1e-4).
+Each rank also records the local shapes of its attention calls (the
+kernel dispatchers and plain versions wrapped in the worker), so that
+each case shows which of ``local_calls``' attention plans it took.
 """
 import dataclasses
 import os
@@ -46,20 +49,30 @@ MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 # log-sigmoid (-softplus(-x)); 8-bit moments under FSDP at d_model 384,
 # where every leaf whose last dim is d_model (three blocks of 128) has
 # it split over the 2-way data axis (at 64, one block, DTensor views
-# the singleton block count through and nothing shows)
+# the singleton block count through and nothing shows). Attention: Yi-9B
+# at 6 heads and 3 KV heads splits the query heads and gives each rank
+# one KV head per query head; at 3 heads and 1 KV head, which the 2-way
+# model axis does not divide, it splits the query rows (and the output
+# projection takes each rank's own rows)
 TRAIN_CASES = {
     "smollm-135m": ("smollm-135m", {}),
     "deepseek-v3-671b": ("deepseek-v3-671b", {}),
     "yi-9b-3kv-fsdp": ("yi-9b", {"num_heads": 6, "num_kv_heads": 3,
                                  "d_model": 96, "fsdp": True}),
+    "yi-9b-3h-rows": ("yi-9b", {"num_heads": 3, "num_kv_heads": 1,
+                                "d_model": 48}),
     "jamba-v0.1-52b": ("jamba-v0.1-52b", {}),
     "xlstm-125m": ("xlstm-125m", {}),
     "smollm-135m-fsdp-8bit": ("smollm-135m", {"d_model": 384, "fsdp": True,
                                               "opt_8bit_moments": True}),
 }
-# Yi-9B reduced: 4 KV heads divide the 2-way model axis (head-sharded
-# cache); at 1 KV head the cache is sequence-sharded
-SERVE_KV_HEADS = (4, 1)
+# Yi-9B reduced, by the fields replaced: 4 KV heads divide the 2-way
+# model axis (head-sharded cache); at 1 KV head the cache is
+# sequence-sharded, prefill splits the 4 query heads and decode joins the
+# two ranks' rows; at 3 heads and 1 KV head prefill splits the query rows
+SERVE_CASES = {4: {"num_kv_heads": 4}, 1: {"num_kv_heads": 1},
+               "3-heads-1kv": {"num_heads": 3, "num_kv_heads": 1,
+                               "d_model": 48}}
 B, S, DECODES, T_MAX = 4, 8, 3, 32
 
 
@@ -81,11 +94,11 @@ def _tokens(seed, shape):
         .astype(np.int32)
 
 
-def _serve_cfgs(kv_heads):
+def _serve_cfgs(case):
     from repro import configs as jconfigs
     from repro_torch import configs
     return tuple(dataclasses.replace(c.reduced_config("yi-9b"),
-                                     num_kv_heads=kv_heads)
+                                     **SERVE_CASES[case])
                  for c in (jconfigs, configs))
 
 
@@ -133,10 +146,10 @@ def _jax_train(case, jp, batch):
     return {k: float(v) for k, v in m.items()}
 
 
-def _jax_serve(kv_heads, jp, toks):
+def _jax_serve(case, jp, toks):
     from repro.models import kvcache
     from repro.models.transformer import forward
-    jcfg, _ = _serve_cfgs(kv_heads)
+    jcfg, _ = _serve_cfgs(case)
     cache = kvcache.init_cache(jcfg, B, T_MAX)
     lg, cache, _ = forward(jp, jcfg, toks[:, :S], cache=cache,
                            cache_index=0, mode="prefill")
@@ -195,11 +208,11 @@ def subprocess_main(out_dir: str) -> None:
         params[case] = (_port_tree(jparams[case], tcfg),
                         {"inputs": _tokens(1, (B, 16)),
                          "labels": _tokens(2, (B, 16))})
-    for kvh in SERVE_KV_HEADS:
-        jcfg, tcfg = _serve_cfgs(kvh)
-        jparams[kvh] = init_params(jcfg, jax.random.PRNGKey(0))
-        params[("serve", kvh)] = (_port_tree(jparams[kvh], tcfg),
-                                  _tokens(3, (B, S + DECODES)))
+    for case in SERVE_CASES:
+        jcfg, tcfg = _serve_cfgs(case)
+        jparams[case] = init_params(jcfg, jax.random.PRNGKey(0))
+        params[("serve", case)] = (_port_tree(jparams[case], tcfg),
+                                   _tokens(3, (B, S + DECODES)))
     torch.save({"inputs": inp, "params": params}, out / "inputs.pt")
     ranks = mp.spawn(_worker, args=(WORLD, out_dir), nprocs=WORLD,
                      join=False)
@@ -214,11 +227,11 @@ def subprocess_main(out_dir: str) -> None:
                                             for k, v in batch.items()})
         ref["port_train"][case] = (new_p, new_o,
                                    {k: float(v) for k, v in m.items()})
-    for kvh in SERVE_KV_HEADS:
-        _, tcfg = _serve_cfgs(kvh)
-        p, toks = params[("serve", kvh)]
-        ref["serve"][kvh] = _jax_serve(kvh, jparams[kvh], toks)
-        ref["port_serve"][kvh] = _port_serve(p, tcfg, toks)
+    for case in SERVE_CASES:
+        _, tcfg = _serve_cfgs(case)
+        p, toks = params[("serve", case)]
+        ref["serve"][case] = _jax_serve(case, jparams[case], toks)
+        ref["port_serve"][case] = _port_serve(p, tcfg, toks)
     torch.save(ref, out / "ref.pt")
     while not ranks.join():
         pass
@@ -234,14 +247,45 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
     data = torch.load(out / "inputs.pt", weights_only=False)
     got = {"coll": _port_collectives(data["inputs"], rank)}
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-    got["train"] = {c: _sharded_train(c, mesh, *data["params"][c])
-                    for c in TRAIN_CASES}
-    got["serve"] = {k: _sharded_serve(k, mesh, *data["params"][("serve", k)])
-                    for k in SERVE_KV_HEADS}
+    calls = _record_attention_calls()
+    got["train"], got["serve"], got["calls"] = {}, {}, {}
+    for c in TRAIN_CASES:
+        got["train"][c] = _sharded_train(c, mesh, *data["params"][c])
+        got["calls"][c] = list(calls)
+        calls.clear()
+    for c in SERVE_CASES:
+        got["serve"][c] = _sharded_serve(c, mesh,
+                                         *data["params"][("serve", c)])
+        got["calls"][c] = list(calls)
+        calls.clear()
+    # ranks 0 and 1: data 0, model 0 and 1
+    if rank < 2:
+        torch.save(got["calls"], out / f"calls{rank}.pt")
     if rank == 0:
         torch.save(got, out / "got.pt")
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _record_attention_calls():
+    """Wraps the attention dispatchers and plain versions that the built
+    steps reach (both routes) so that each call on this rank appends
+    (name, local q shape, local k shape, valid_len values, lse asked);
+    returns the list."""
+    from repro_torch.kernels import ops
+    calls = []
+
+    def recorded(name, fn):
+        def run(q, k, v, *args, **kwargs):
+            vl = args[0].tolist() if args else None
+            calls.append((name, tuple(q.shape), tuple(k.shape), vl,
+                          bool(kwargs.get("with_lse"))))
+            return fn(q, k, v, *args, **kwargs)
+        return run
+    for name in ("flash_attention", "decode_attention"):
+        setattr(ops, name, recorded(name, getattr(ops, name)))
+        ops.PLAIN[name] = recorded(name, ops.PLAIN[name])
+    return calls
 
 
 def _gather_rows(t, group):
@@ -297,12 +341,12 @@ def _sharded_train(case, mesh, p, batch):
                                       for k, v in m.items()}
 
 
-def _sharded_serve(kv_heads, mesh, p, toks):
+def _sharded_serve(case, mesh, p, toks):
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.launch import steps
     from repro_torch.models.kvcache import init_cache
     from repro_torch.parallel.sharding import distribute
-    _, tcfg = _serve_cfgs(kv_heads)
+    _, tcfg = _serve_cfgs(case)
     pre = ShapeConfig("prefill", "prefill", T_MAX, B)
     dec = ShapeConfig("decode", "decode", T_MAX - 1, B)
     pstep, pargs, specs = steps.build_serve_step(tcfg, mesh, pre)
@@ -331,8 +375,10 @@ def results(tmp_path_factory):
          f"m.subprocess_main({str(out)!r})"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=420)
     assert r.returncode == 0, r.stderr[-4000:]
-    return (torch.load(out / "ref.pt", weights_only=False),
-            torch.load(out / "got.pt", weights_only=False))
+    got = torch.load(out / "got.pt", weights_only=False)
+    got["calls"] = [torch.load(out / f"calls{r}.pt", weights_only=False)
+                    for r in (0, 1)]
+    return torch.load(out / "ref.pt", weights_only=False), got
 
 
 def test_allgather_matmul_matches_jax(results):
@@ -383,13 +429,60 @@ def _close_trees(a, b):
             torch.testing.assert_close(x, y, **MODEL_TOL)
 
 
+# the attention calls each case makes on ranks 0 and 1 (data 0, model 0
+# and 1): (name, local q shape, local k shape, valid_len values on rank 0
+# and on rank 1, log-sum-exp asked), in order. Local batch 2 of 4, head
+# dim 16; prefill and training run flash attention once a layer (2
+# layers), decode runs decode attention once a layer and step.
+def _decode_calls(q, k, lse, shifted):
+    """Decode's calls at steps S, S + 1, S + 2: rank 0 holds rows from 0,
+    rank 1 from ``shifted`` (clipped to 0 where its rows are all past
+    the live ones)."""
+    return [("decode_attention", q, k, [S + i + 1] * 2,
+             [max(S + i + 1 - shifted, 0)] * 2, lse)
+            for i in range(DECODES) for _ in range(2)]
+
+
+EXPECTED_CALLS = {
+    # heads and KV heads split
+    4: [("flash_attention", (2, 8, 2, 16), (2, 8, 2, 16), None, None,
+         False)] * 2 + _decode_calls((2, 2, 16), (2, 32, 2, 16), False, 0),
+    # query heads split, each rank's two read one KV head; decode over
+    # each rank's 16 of the 32 cache rows, joined by their lse
+    1: [("flash_attention", (2, 8, 2, 16), (2, 8, 1, 16), None, None,
+         False)] * 2 + _decode_calls((2, 4, 16), (2, 16, 1, 16), True, 16),
+    # 3 heads on 2: query rows split, K/V whole
+    "3-heads-1kv": [("flash_attention", (2, 4, 3, 16), (2, 8, 1, 16), None,
+                     None, False)] * 2
+    + _decode_calls((2, 3, 16), (2, 16, 1, 16), True, 16),
+    # 6 heads split 3 a rank over 3 KV heads: one KV head per query head
+    "yi-9b-3kv-fsdp": [("flash_attention", (2, 16, 3, 16), (2, 16, 3, 16),
+                        None, None, False)] * 2,
+    "yi-9b-3h-rows": [("flash_attention", (2, 8, 3, 16), (2, 16, 1, 16),
+                       None, None, False)] * 2,
+}
+
+
+def _assert_calls(got, case):
+    """Each rank's attention calls are the case's plan's."""
+    want = EXPECTED_CALLS.get(case)
+    if want is None:
+        return
+    for rank, calls in enumerate(got["calls"]):
+        assert [(n, qs, ks, vl, lse) for n, qs, ks, vl, lse in calls[case]] \
+            == [(n, qs, ks, vls[rank], lse)
+                for n, qs, ks, *vls, lse in want], (case, rank)
+
+
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_built_train_step_matches_unsharded_and_jax(results, case):
     """build_train_step on the 2 x 2 mesh: metrics against the unsharded
     port step and the JAX step, new parameters and optimizer state
     against the unsharded port step (``TRAIN_CASES`` says what each case
-    goes through)."""
+    goes through); the attention split each rank took
+    (``EXPECTED_CALLS``)."""
     ref, got = results
+    _assert_calls(got, case)
     new_p, new_o, m = got["train"][case]
     up, uo, um = ref["port_train"][case]
     assert set(m) == set(um) == set(ref["train"][case])
@@ -409,20 +502,22 @@ def test_built_train_step_matches_unsharded_and_jax(results, case):
                 torch.testing.assert_close(x, y, atol=1e-12, rtol=1e-4)
 
 
-@pytest.mark.parametrize("kv_heads", SERVE_KV_HEADS)
-def test_built_serve_step_matches_unsharded_and_jax(results, kv_heads):
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_built_serve_step_matches_unsharded_and_jax(results, case):
     """build_serve_step on the 2 x 2 mesh: prefill and three decode
     steps, the cache written in place, head-sharded (4 KV heads) or
     sequence-sharded (1 KV head); last-position logits against the
     unsharded port steps and the JAX forward, the cache against the
-    unsharded port's."""
+    unsharded port's; the attention split each rank took
+    (``EXPECTED_CALLS``)."""
     ref, got = results
-    logits, cache, kspecs = got["serve"][kv_heads]
-    want_specs = [("data", None, "model", None)] * 2 if kv_heads == 4 \
+    _assert_calls(got, case)
+    logits, cache, kspecs = got["serve"][case]
+    want_specs = [("data", None, "model", None)] * 2 if case == 4 \
         else [("data", "model", None, None)] * 2
     assert kspecs == want_specs
-    ul, uc = ref["port_serve"][kv_heads]
+    ul, uc = ref["port_serve"][case]
     torch.testing.assert_close(logits, ul, **MODEL_TOL)
-    np.testing.assert_allclose(logits.numpy(), ref["serve"][kv_heads],
+    np.testing.assert_allclose(logits.numpy(), ref["serve"][case],
                                **MODEL_TOL)
     _close_trees(cache, uc)
