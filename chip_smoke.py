@@ -184,10 +184,14 @@ before the next, in bfloat16 with random weights:
     events (the median step time), the loss falling, a checkpoint at
     step 8 loaded into fresh trees and the next step taken from both
     (deterministic algorithms on): trees, metrics and new trees equal bit
-    for bit; reduced deepseek-v3 (MTP, z-loss, 8-bit moments) for one
-    step in 2 microbatches on the card and on the CPU, metrics within
-    1e-3; 6 ``diffusion_loss`` AdamW steps of the served tier-0 UNet at
-    full width, batch 4, timed.
+    for bit; that step once over ``meta`` under the dry run's memory
+    record (``analysis.count.Live``) and once on the card, the record's
+    peak printed beside ``max_memory_allocated`` after
+    ``reset_peak_memory_stats`` (``step memory`` line, with the card's
+    name and power limit); reduced deepseek-v3 (MTP, z-loss, 8-bit
+    moments) for one step in 2 microbatches on the card and on the CPU,
+    metrics within 1e-3; 6 ``diffusion_loss`` AdamW steps of the served
+    tier-0 UNet at full width, batch 4, timed.
 17. The float32 flash routes with a query offset and query positions
     (``float32_routes_phase``): ``tf32x3`` at qwen2-vl's chunk shape in
     float32 (q (4,128,28,128), k/v (4,512,4,128)) at offsets 128, 256,
@@ -203,7 +207,8 @@ before the next, in bfloat16 with random weights:
     NCCL refuses two ranks on one GPU): ``build_train_step`` for
     smollm-135m at full size on one 8 x 512 batch against the unsharded
     step under deterministic algorithms (metrics and new trees bit for
-    bit); ``build_serve_step`` for Yi-9B at full width (8 of its 48
+    bit), and its ``step memory`` line as in 16 over ``meta`` DTensors on
+    the same mesh; ``build_serve_step`` for Yi-9B at full width (8 of its 48
     layers) for a 4 x 512 prefill and 8 decode steps, counters zeroed
     just before and read just after, against ``serve_prefill`` /
     ``serve_decode`` (logits and cache bit for bit, the same launches
@@ -2941,6 +2946,48 @@ def train_entry_point(torch):
     return {"stdout": out, "checkpoints": saved}
 
 
+def _card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if DEV != "cuda":
+        return "no card (a CPU rehearsal)"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def step_memory(torch, label, step, args, meta_args):
+    """One call of ``step`` over ``meta`` arguments under the dry run's
+    memory record (``analysis.count.Live``: peak live bytes of what the
+    step allocates, its arguments not counted) beside one call on the
+    card over ``args``: ``torch.cuda.max_memory_allocated()`` after
+    ``reset_peak_memory_stats()``, whole and less the bytes allocated
+    before the call (the arguments and whatever else is resident)."""
+    from repro_torch.analysis.count import Live
+    with Live() as live:
+        step(*meta_args)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    card = _card_line()
+    log(f"step memory {label}: the record over meta {live.peak} bytes "
+        f"(largest allocation {live.largest}); on the card "
+        f"max_memory_allocated {peak} bytes, {peak - base} above the "
+        f"{base} allocated before the step ({card})")
+    if not 0 < live.peak:
+        fail(f"step memory {label}: the record counted nothing")
+    return {"record_peak_bytes": live.peak, "record_largest": live.largest,
+            "card_peak_bytes": peak, "card_base_bytes": base,
+            "card_peak_above_base": peak - base, "card": card}
+
+
 def lm_training(torch, np, cfg):
     """TRAIN_STEPS AdamW steps of ``make_train_step`` on the full-size
     model, each between CUDA events, with a checkpoint at
@@ -3014,10 +3061,15 @@ def lm_training(torch, np, cfg):
     if at != TRAIN_CKPT_STEP or not (loaded_equal and metrics_equal
                                      and next_equal):
         fail(f"train {cfg.name}: the checkpoint round trip differs")
+    del a, b, lp, lo, kept
+    meta_p = _on_meta(torch, params)
+    memory = step_memory(torch, f"train {cfg.name} {TRAIN_BATCH} x "
+                         f"{TRAIN_SEQ}", step, (params, opt, nxt),
+                         (meta_p, opt_init(meta_p), _on_meta(torch, nxt)))
     return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
             "losses": losses, "step_ms": step_ms, "step_median_ms": median,
             "tokens_per_s": tokens / median * 1e3, "peak_bytes": peak,
-            "checkpoint_step": at}
+            "checkpoint_step": at, "memory": memory}
 
 
 def deepseek_training(torch, np):
@@ -3395,9 +3447,17 @@ def dist_train(torch, np, mesh):
     if not (metrics_equal and trees_equal):
         fail("distribution train: the built step differs from the "
              "unsharded one")
+    del want, got, g_p, g_o, g_m
+    from repro_torch.launch.dryrun import laid_out
+    meta_b = _on_meta(torch, batch)
+    memory = step_memory(
+        torch, f"distribution train {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} "
+        "on the (1, 1) mesh", built, (dp, do, db),
+        [laid_out(t, steps.named_safe(mesh, specs[n], t)) for t, n in
+         ((ps, "params"), (os_, "opt"), (meta_b, "batch"))])
     return {"metrics_equal": metrics_equal, "trees_equal": trees_equal,
             "plain_ms": plain_ms, "built_ms": built_ms,
-            "added_ms": built_ms - plain_ms}
+            "added_ms": built_ms - plain_ms, "memory": memory}
 
 
 def dist_serve(torch, mesh):
@@ -3751,7 +3811,9 @@ def finish_dryrun_cells(started):
             f"{rec.get('build_s')} s, trace {rec.get('trace_s')} s, read "
             f"{wall:.1f} s after its start, per device dot_flops "
             f"{rec.get('dot_flops', 0):.6e}, collectives "
-            f"{ {k: int(v['count']) for k, v in coll.items()} }"
+            f"{ {k: int(v['count']) for k, v in coll.items()} }, temp "
+            f"{rec.get('temp_size_in_bytes')} bytes, largest allocation "
+            f"{rec.get('largest_allocation')}"
             + (f", dominant {row['dominant']}" if row else "")
             + ("" if rec["status"] == "ok"
                else f": {rec.get('error', '')[:1500]}"))
@@ -3762,7 +3824,8 @@ def finish_dryrun_cells(started):
             "overrides": list(overrides), "read_after_s": wall,
             "dominant": row["dominant"], **{k: rec.get(k) for k in (
                 "status", "build_s", "trace_s", "dot_flops",
-                "traffic_bytes", "collectives")}}
+                "traffic_bytes", "collectives", "temp_size_in_bytes",
+                "largest_allocation")}}
     return out
 
 

@@ -15,8 +15,10 @@ of several runs' ``summary.json`` (two torch versions, say);
 run's ``summary.json`` (``repro.launch.dryrun.run_cell``, one process a
 cell, with ``jax.make_mesh`` wrapped to ``Auto`` axes, on which the
 JAX package's ``constrain`` runs under jax 0.9) and prints port ÷
-reference dot flops and both all-gathers' result bytes; it needs JAX
-and the JAX package, and only its child processes import them.
+reference dot flops, both all-gathers' result bytes and both temp
+bytes (the port's peak live bytes, ``analysis.count.Live``, beside
+XLA's ``temp_size_in_bytes``); it needs JAX and the JAX package, and
+only its child processes import them.
 
 Usage:
   PYTHONPATH=src python scripts/dryrun_sweep_torch.py --all --both-meshes \
@@ -171,8 +173,18 @@ def against_reference(summary, out_dir: pathlib.Path, jobs: int,
             f"{key}: dot flops port {c['dot_flops']:.6e} reference "
             f"{r['hlo_dot_flops']:.6e} port/reference "
             f"{c['dot_flops'] / r['hlo_dot_flops']:.4f}; all-gather result "
-            f"bytes port {gathered(c):.6e} reference {gathered(r):.6e}")
+            f"bytes port {gathered(c):.6e} reference {gathered(r):.6e}; "
+            f"temp bytes port {c.get('temp_size_in_bytes')} reference "
+            f"{r.get('temp_size_in_bytes')}; port largest allocation "
+            f"{largest(c)}")
     return "\n".join(lines)
+
+
+def largest(rec) -> str:
+    """A record's largest allocation as bytes, shape, dtype and op."""
+    a = rec.get("largest_allocation")
+    return "-" if not a else \
+        f"{a['bytes']} B {tuple(a['shape'])} {a['dtype']} {a['op']}"
 
 
 def port_frame(tb: str) -> str:
@@ -186,8 +198,9 @@ def summarise(recs, out_dir: pathlib.Path) -> None:
     from repro_torch.analysis import roofline
     import torch
     rows = ["| arch | shape | mesh | overrides | status | build s | "
-            "trace s | wall s | dot flops / device | dominant |",
-            "|---|---|---|---|---|---|---|---|---|---|"]
+            "trace s | wall s | dot flops / device | dominant | temp B | "
+            "largest allocation |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     ok = {m: [] for m in MESHES}
     for r in recs:
         a = roofline.analyze(r) if r["status"] == "ok" else None
@@ -199,11 +212,13 @@ def summarise(recs, out_dir: pathlib.Path) -> None:
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
             f"{','.join(r['overrides']) or '-'} | {r['status']} | "
             f"{r.get('build_s', '-')} | {r.get('trace_s', '-')} | "
-            f"{r['process_wall_s']} | {flops} | {r['dominant'] or '-'} |")
+            f"{r['process_wall_s']} | {flops} | {r['dominant'] or '-'} | "
+            f"{r.get('temp_size_in_bytes', '-')} | {largest(r)} |")
         line = (f"[{r['status']:7s}] {r['mesh']:8s} {r['arch']} {r['shape']} "
                 f"{','.join(r['overrides'])} build {r.get('build_s')} trace "
                 f"{r.get('trace_s')} wall {r['process_wall_s']} dot_flops "
-                f"{r.get('dot_flops')} dominant {r['dominant']}")
+                f"{r.get('dot_flops')} dominant {r['dominant']} temp "
+                f"{r.get('temp_size_in_bytes')} largest {largest(r)}")
         if r["status"] not in ("ok", "skipped"):
             line += (f"\n    {r.get('error', '')[:600]}\n    "
                      f"{port_frame(r.get('traceback', ''))}")
@@ -264,8 +279,9 @@ def combine(paths) -> str:
 
 def compare(path_a, path_b) -> str:
     """Per cell ok in both runs' ``summary.json`` (say, parent and
-    change): each collective's count, operand and result bytes, and the
-    dot flops, in run A and run B."""
+    change): each collective's count, operand and result bytes, the dot
+    flops, the temp bytes and the largest allocation, in run A and run
+    B."""
     a, b = (json.loads(pathlib.Path(p).read_text()) for p in (path_a, path_b))
     cb = {(c["arch"], c["shape"], c["mesh"]): c for c in b["cells"]}
     lines = []
@@ -284,7 +300,10 @@ def compare(path_a, path_b) -> str:
                          f"{x.get('result_bytes', 0):.6e} -> "
                          f"{y.get('result_bytes', 0):.6e} B)")
         lines.append(f"{' '.join(key)}: dot_flops {ca['dot_flops']:.6e} -> "
-                     f"{c2['dot_flops']:.6e}; " + "; ".join(parts))
+                     f"{c2['dot_flops']:.6e}; " + "; ".join(parts)
+                     + f"; temp {ca.get('temp_size_in_bytes')} -> "
+                     f"{c2.get('temp_size_in_bytes')}; largest "
+                     f"{largest(ca)} -> {largest(c2)}")
     return "\n".join(lines)
 
 

@@ -44,15 +44,42 @@ they run, on any device, ``meta`` included, and returns what
   the input's, result bytes the output's. A send is one
   ``collective-permute`` (its operand), a receive adds its result.
 
+``Live`` (a sibling mode, entered with ``Count`` or alone) keeps the
+memory record that ``memory_analysis`` gives the JAX package: rank 0's
+peak live local bytes over one call, and its largest single
+allocation.
+
+* **Allocations.** Every op output that owns storage not seen before
+  adds its storage's bytes when it is made; a view, an in-place op or an
+  ``out=`` write lands in storage already counted (or in an argument's)
+  and adds nothing. Each storage is counted once.
+* **Frees.** A storage's bytes come off when the storage itself dies (a
+  finalizer on it), not when a Python name goes: a tensor autograd
+  saves for the backward stays live until the backward releases it.
+* **What is not counted.** DTensor-level ops (as ``Count``: their local
+  ops are what run); any output that is not a plain tensor: the fake
+  tensors of DTensor's sharding propagation (checked on each output, as
+  its factory ops take no tensor) and the functional collectives'
+  ``AsyncCollectiveTensor``, which wraps a result already counted; and
+  anything allocated before the mode was entered: the call's arguments
+  are not in the peak, its outputs are (they are made inside it). The
+  running total starts at 0.
+* **The peak** is the running total's maximum; ``largest`` the single
+  largest storage made, with the shape and dtype of the output that
+  made it and its op. Bytes are the storage's own, so a ``meta`` tensor
+  counts what it would hold on the card; allocator rounding and caching
+  are not modelled.
+
 Usage::
 
-    with Count() as c:
+    with Count() as c, Live() as m:
         step(*args)
-    c.result()
+    c.result(), m.result()
 """
 from __future__ import annotations
 
 import contextlib
+import weakref
 from collections import defaultdict
 from typing import Dict, Optional
 
@@ -224,6 +251,75 @@ class Count(TorchDispatchMode):
                                 for k, v in self.collectives.items()},
                 "dot_flops": self.dot_flops,
                 "traffic_bytes": self.traffic_bytes}
+
+
+def _tensors(x):
+    """The tensors of an op's (nested) arguments or outputs."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _tensors(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _tensors(y)
+
+
+# the tensor types whose storage is an allocation: not a wrapper subclass
+# (DTensor, the fake tensors of sharding propagation, the functional
+# collectives' AsyncCollectiveTensor)
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+
+
+class Live(TorchDispatchMode):
+    """Peak live bytes of the storages made by the ops run under it, and
+    the largest one (see the module note)."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self.largest: Optional[Dict[str, object]] = None
+        self._held: Dict[int, int] = {}     # id(storage) -> its bytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _is_dtensor(types):
+            return NotImplemented       # the local ops are what allocate
+        out = func(*args, **kwargs)
+        self._add(func, args, kwargs, out)
+        return out
+
+    def _add(self, func, args, kwargs, out) -> None:
+        inputs = None
+        for t in _tensors(out):
+            if type(t) not in _PLAIN:
+                continue            # a wrapper subclass owns no storage
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._held:
+                continue
+            if inputs is None:
+                inputs = {id(a.untyped_storage())
+                          for a in _tensors((args, kwargs))
+                          if type(a) in _PLAIN}
+            if key in inputs:           # a view or in-place write
+                continue
+            n = st.nbytes()
+            self._held[key] = n
+            weakref.finalize(st, self._free, key).atexit = False
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            if self.largest is None or n > self.largest["bytes"]:
+                self.largest = {"bytes": n, "shape": list(t.shape),
+                                "dtype": str(t.dtype).replace("torch.", ""),
+                                "op": str(func.overloadpacket)}
+
+    def _free(self, key: int) -> None:
+        self.live -= self._held.pop(key, 0)
+
+    def result(self) -> Dict[str, object]:
+        return {"peak_bytes": self.peak, "largest": self.largest}
 
 
 def active() -> Optional[Count]:

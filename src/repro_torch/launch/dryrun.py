@@ -2,7 +2,8 @@
 every (arch × shape × mesh) cell, the step that ``build_train_step`` or
 ``build_serve_step`` builds on the production mesh is traced once under
 ``analysis.count.Count`` and its per-device work recorded for §Dry-run /
-§Roofline (``analysis/roofline.py``).
+§Roofline (``analysis/roofline.py``), with rank 0's peak live bytes and
+largest allocation beside it (``analysis.count.Live``).
 
 The JAX package lowers and compiles each cell on 512 placeholder host
 devices. The port runs each cell in one process on a ``fake`` process
@@ -31,8 +32,9 @@ import time
 import traceback
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.analysis.count import Count, tensor_bytes
+from repro_torch.analysis.count import Count, Live, tensor_bytes
 from repro_torch.configs import ARCH_IDS, SHAPES, applicable, get_config
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import (build_serve_step, build_train_step,
@@ -63,8 +65,89 @@ COUNTED_BY = {
                               "named_safe",
     "output_size_in_bytes": "rank 0's local shard bytes of the step's "
                             "outputs",
-    "temp_size_in_bytes": "null: no counterpart of memory_analysis",
+    "temp_size_in_bytes": "analysis/count.py Live: rank 0's peak live "
+                          "local bytes of the storages the step makes "
+                          "(each counted once, from its op until its "
+                          "storage is freed; tensors saved for the "
+                          "backward live until the backward frees them), "
+                          "the arguments not included and the outputs "
+                          "included; XLA's temp excludes both, and a "
+                          "compiled step reuses buffers that eager "
+                          "PyTorch allocates anew",
+    "largest_allocation": "analysis/count.py Live: rank 0's single "
+                          "largest storage made in the step: its bytes, "
+                          "the shape and dtype of the output that made "
+                          "it, and its op",
 }
+
+
+class MetaCache(TorchDispatchMode):
+    """Outputs of functional ops on ``meta`` tensors made from the
+    metadata of an earlier call with the same inputs, instead of through
+    torch's Python meta kernels (about 0.3 ms an elementwise op: the
+    recurrences' step loops run hundreds of thousands). An op qualifies
+    when every tensor argument is a plain ``meta`` tensor, it writes no
+    argument, no output aliases one, and its other arguments hash: its
+    output depends then only on the arguments' shapes, strides and
+    dtypes, which with the op and the other arguments key the cache
+    (aten ops only: a collective's output must be the one its wait
+    finds; an output off ``meta`` is not kept).
+    Entered outside ``Count`` and ``Live`` (first), so both see every op
+    and the fresh storage each output gets."""
+
+    def __init__(self):
+        super().__init__()
+        self._outs = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        key = self._key(func, types, args, kwargs)
+        if key is None:
+            return func(*args, **kwargs)
+        meta = self._outs.get(key)
+        if meta is None:
+            out = func(*args, **kwargs)
+            if all(o.device.type == "meta" for o in _as_list(out)):
+                self._outs[key] = (isinstance(out, tuple),
+                                   [(o.shape, o.stride(), o.dtype)
+                                    for o in _as_list(out)])
+            return out
+        many, outs = meta
+        made = [torch.empty_strided(shape, stride, dtype=dtype,
+                                    device="meta")
+                for shape, stride, dtype in outs]
+        return tuple(made) if many else made[0]
+
+    @staticmethod
+    def _key(func, types, args, kwargs):
+        if func.namespace != "aten" or types:    # a subclass among them
+            return None
+        schema = func._schema
+        if schema.is_mutable or any(r.alias_info is not None
+                                    for r in schema.returns) or not all(
+                str(r.type) == "Tensor" for r in schema.returns):
+            return None
+        parts, tensors = [func], 0
+        for a in (*args, *sorted(kwargs.items())):
+            for x in (a if isinstance(a, (list, tuple)) else (a,)):
+                if isinstance(x, torch.Tensor):
+                    if x.device.type != "meta":
+                        return None
+                    parts.append((tuple(x.shape), x.stride(), x.dtype))
+                    tensors += 1
+                else:
+                    parts.append(x)
+        if not tensors:
+            return None
+        try:
+            hash(tuple(parts))
+        except TypeError:
+            return None
+        return tuple(parts)
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, tuple) else [out]
 
 
 def fake_group(world_size: int) -> None:
@@ -139,12 +222,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             for t, n in zip(trees, names)] + list(extra)
     rec["build_s"] = round(time.time() - t0, 2)
     t1 = time.time()
-    with Count() as c:
+    with MetaCache(), Count() as c, Live() as live:
         out = step(*args)
     rec["trace_s"] = round(time.time() - t1, 2)
     rec["argument_size_in_bytes"] = local_bytes(args)
     rec["output_size_in_bytes"] = local_bytes(out)
-    rec["temp_size_in_bytes"] = None
+    rec["temp_size_in_bytes"] = live.peak
+    rec["largest_allocation"] = live.largest
     rec.update(c.result())          # collectives, dot_flops, traffic_bytes
     rec["counted_by"] = COUNTED_BY
     rec["status"] = "ok"

@@ -35,9 +35,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.impls import resolve_kernel_impl
 from repro_torch.parallel.local_calls import (maybe_local, replicated_call,
                                               rows_product, split_by_rows,
-                                              write_rows)
-from repro_torch.parallel.sharding import (constrain, foldable_grad,
-                                           gather_last, placed_grad,
+                                              vocab_parallel_embedding,
+                                              vocab_split, write_rows)
+from repro_torch.parallel.sharding import (as_replicated, constrain,
+                                           foldable_grad, gather_last,
+                                           is_dtensor, placed_grad,
                                            splittable, splittable_grad)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -503,15 +505,33 @@ def embed_init(gen, cfg, device=None):
     return p
 
 
+def lookup(tokens, table):
+    """``F.embedding(tokens, table)`` (``jnp.take`` in the JAX package).
+    On a mesh the tokens are laid out by batch first (replicated ones,
+    plain tensors among them, are cut locally) and the table's embedding
+    dim is gathered (the FSDP all-gather: DTensor mismasks a lookup into
+    a table split over the mesh dim that splits the tokens' batch); a
+    table whose rows a mesh dim splits is looked up on each rank's own
+    rows (``local_calls.vocab_parallel_embedding``: the rows come back
+    split as the tokens are, a partial sum over the vocabulary's mesh
+    dims, and the table's gradient is each rank's own rows), any other
+    through DTensor's ``F.embedding``."""
+    if is_dtensor(table):
+        tokens = constrain(as_replicated(tokens, table.device_mesh),
+                           "batch", None)
+    table = gather_last(table)
+    if vocab_split(table, 0):
+        return vocab_parallel_embedding(tokens, table)
+    return F.embedding(tokens, table)
+
+
 def embed_apply(params, cfg, tokens, positions=None):
-    """Rows of the embedding table (``jnp.take`` in the JAX package) as
-    ``F.embedding``: DTensor propagates it with the batch split over two
-    mesh axes (the multi-pod mesh), where indexing raises in some torch
-    versions. On a mesh the table's embedding dim is gathered first (the
-    FSDP all-gather): DTensor mismasks a lookup into a table split over
-    the mesh dim that splits the tokens' batch."""
-    x = F.embedding(tokens, gather_last(params["embedding"]))
+    """Rows of the embedding table (``lookup``) as ``F.embedding``:
+    DTensor propagates it with the batch split over two mesh axes (the
+    multi-pod mesh), where indexing raises in some torch versions. No
+    rank looks up the whole batch."""
+    x = lookup(tokens, params["embedding"])
     if cfg.pos_emb == "learned" and positions is not None:
         pos = positions if positions.ndim == 2 else positions[0]
-        x = x + F.embedding(pos, params["pos_embedding"])
+        x = x + lookup(pos, params["pos_embedding"])
     return placed_grad(constrain(x, "batch", None, "act_embed"))

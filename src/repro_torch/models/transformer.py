@@ -42,7 +42,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -50,7 +49,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
-from repro_torch.parallel.sharding import constrain, foldable, gather_last
+from repro_torch.parallel.sharding import constrain, foldable
 
 MODES = ("train", "prefill", "decode")
 
@@ -217,7 +216,7 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
         x = inputs.to(L.torch_dtype(cfg.dtype))
         if cfg.pos_emb == "learned":
             pos = positions if positions.ndim == 2 else positions[0]
-            x = x + F.embedding(pos, params["embed"]["pos_embedding"])
+            x = x + L.lookup(pos, params["embed"]["pos_embedding"])
     x = constrain(x, "batch", "seq", "act_embed")
     valid_len = None
     if cache is not None and S == 1:
@@ -252,7 +251,7 @@ def mtp_logits(params, cfg: ModelConfig, hidden, next_tokens,
     if slot_mask:
         positions = default_positions(cfg, B,
                                       L.slots_for(S, 0, hidden.device))
-    emb = F.embedding(next_tokens, gather_last(params["embed"]["embedding"]))
+    emb = L.lookup(next_tokens, params["embed"]["embedding"])
     h = torch.cat([L.norm_apply(mp["norm_h"], hidden, cfg.norm,
                                 cfg.norm_eps, impl=impl),
                    L.norm_apply(mp["norm_e"], emb, cfg.norm, cfg.norm_eps,

@@ -64,6 +64,18 @@ sequence-sharded cache unsplit), in this order:
     ``decode_attention`` on both routes). On a model axis of one rank
     every call takes this plan or the first, as on one card.
 
+An embedding lookup into a table whose rows (the vocabulary) a mesh dim
+splits (``vocab_parallel_embedding``) runs on each rank's own rows with
+the tokens split by batch: no rank looks up the whole batch, and the
+table's gradient is each rank's own rows.
+
+The cross entropy's log-sum-exp and label pick (``vocab_parallel_ce``)
+run on each rank's own logits, vocabulary slice and all: the max, the
+sum of exponentials and the picked label logit (each rank picks the
+labels that fall in its slice, at the slice's offset, and 0 for the
+rest) are reduced over the mesh dims that split the vocabulary, three
+all-reduces of one value a token. Nothing gathers the vocabulary.
+
 A plain tensor among the operands stands for a replicated one (as under
 ``implicit_replication``). A partial sum (``Partial``) is reduced by the
 redistribution. Without rules every plan is replicated.
@@ -102,15 +114,6 @@ def has_dtensor(args, kwargs) -> bool:
     DT = _dtensor_type()
     return any(isinstance(a, DT) for a in args) or any(
         isinstance(a, DT) for a in kwargs.values())
-
-
-def _as_dtensor(x, mesh):
-    """A plain tensor as a replicated DTensor (its own storage)."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if isinstance(x, DTensor):
-        return x
-    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False)
 
 
 def _local(x, pl, grad_pl=None):
@@ -175,7 +178,7 @@ def _fresh(name: str, q, k, kwargs) -> bool:
 def _attention(name: str, fn: Callable, mesh, args: list, kwargs: dict):
     """``call`` for attention: the plans of the module note."""
     decode = name == "decode_attention"
-    q, k = (_as_dtensor(t, mesh) for t in args[:2])
+    q, k = (S.as_replicated(t, mesh) for t in args[:2])
     q_axes = _DECODE_Q if decode else _ATTN_Q
     hq = q_axes.index("heads")
     qp = S.logical_placements(q, *q_axes)
@@ -213,8 +216,8 @@ def _run_attention(fn: Callable, mesh, args: list, kwargs: dict, qp, kp,
     from torch.distributed.tensor import DTensor
     keys = [k for k in ("q_positions", "kv_valid_len")
             if kwargs.get(k) is not None]
-    operands = [_as_dtensor(t, mesh) for t in args] + \
-        [_as_dtensor(kwargs[k], mesh) for k in keys]
+    operands = [S.as_replicated(t, mesh) for t in args] + \
+        [S.as_replicated(kwargs[k], mesh) for k in keys]
     plans = [qp, kp, kp] + [_leading(qp, t.ndim) for t in operands[3:]]
     locs = [_local(t, pl, _grad_placements(pl, qp))
             for t, pl in zip(operands, plans)]
@@ -234,7 +237,7 @@ def _decode_over_rows(fn: Callable, mesh, args: list, qp, cp):
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    q, k, v, vl = (_as_dtensor(t, mesh) for t in args)
+    q, k, v, vl = (S.as_replicated(t, mesh) for t in args)
     k_l, v_l = _local(k, cp), _local(v, cp)
     _, offset = compute_local_shape_and_global_offset(k.shape, mesh, cp)
     vl_l = (_local(vl, _leading(qp, 1)) - offset[1]).clamp(
@@ -305,8 +308,8 @@ def call(name: str, fn: Callable, args: Sequence, kwargs: Dict):
     pos = [i for i, a in enumerate(args) if torch.is_tensor(a)]
     keys = [k for k in _TENSOR_KWARGS.get(name, ())
             if kwargs.get(k) is not None]
-    operands = [_as_dtensor(args[i], mesh) for i in pos] + \
-        [_as_dtensor(kwargs[k], mesh) for k in keys]
+    operands = [S.as_replicated(args[i], mesh) for i in pos] + \
+        [S.as_replicated(kwargs[k], mesh) for k in keys]
     plans = _plan(name, operands)
     out_pl = plans[0]
     locs = [_local(t, pl, _grad_placements(pl, out_pl))
@@ -352,7 +355,7 @@ def write_rows(dst, dim: int, index, src) -> None:
     mesh = dst.device_mesh
     along = [isinstance(pl, Shard) and pl.dim == dim for pl in dst.placements]
     pl = tuple(Replicate() if a else p for a, p in zip(along, dst.placements))
-    src_l = _local(_as_dtensor(src, mesh), pl).to(dst.dtype)
+    src_l = _local(S.as_replicated(src, mesh), pl).to(dst.dtype)
     idx = index.to_local() if isinstance(index, DT) else index
     loc = dst.to_local()
     if not any(along):
@@ -377,7 +380,7 @@ def copy_into(dst, src) -> None:
         dst.copy_(src)
         return
     mesh = dst.device_mesh
-    dst.to_local().copy_(_local(_as_dtensor(src, mesh), dst.placements))
+    dst.to_local().copy_(_local(S.as_replicated(src, mesh), dst.placements))
 
 
 def replicated_call(fn: Callable, *tensors):
@@ -392,13 +395,92 @@ def replicated_call(fn: Callable, *tensors):
         return fn(*tensors)
     from torch.distributed.tensor import DTensor, Replicate
     rep = [Replicate()] * mesh.ndim
-    out = fn(*[_local(_as_dtensor(t, mesh), rep) for t in tensors])
+    out = fn(*[_local(S.as_replicated(t, mesh), rep) for t in tensors])
 
     def wrap(o):
         return DTensor.from_local(o, mesh, rep, run_check=False)
     if isinstance(out, tuple):
         return tuple(wrap(o) for o in out)
     return wrap(out)
+
+
+def vocab_parallel_embedding(tokens, table):
+    """``F.embedding(tokens, table)`` for DTensor tokens and a table (V,
+    D) whose rows (the vocabulary) a mesh dim splits, its embedding dim
+    whole (``layers.lookup`` gathers it), on local shards: each rank
+    looks up the tokens that fall in its rows, at its rows' offset, and
+    0 for the rest; the output keeps the tokens' split and is a partial
+    sum over the mesh dims that split the vocabulary (the next layout
+    reduces it). The table's gradient is each rank's own rows (a partial
+    sum over the mesh dims that split the tokens)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = table.device_mesh
+    tp = tuple(table.placements)
+    vdims = _split_dims(tp, 0)
+    tokens = S.as_replicated(tokens, mesh)
+    kp = tuple(Replicate() if i in vdims else p
+               for i, p in enumerate(tokens.placements))
+    out_pl = tuple(Partial() if i in vdims else p for i, p in enumerate(kp))
+    tab = _local(table, tp, _grad_placements(tp, kp))
+    tok = _local(tokens, kp)
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, tp)
+    at = tok.long() - offset[0]
+    hit = (at >= 0) & (at < tab.shape[0])
+    rows = F.embedding(at.clamp(0, tab.shape[0] - 1), tab)
+    rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False)
+
+
+def vocab_split(x, dim: int = -1) -> bool:
+    """Whether ``x`` is a DTensor whose dim ``dim`` (the vocabulary: the
+    logits' last, an embedding table's first) a mesh dim splits."""
+    return isinstance(x, _dtensor_type()) and bool(
+        _split_dims(x.placements, dim % x.ndim))
+
+
+def vocab_parallel_ce(lg, labels):
+    """(lse, ll) of float32 logits ``lg`` (a DTensor (..., V) whose
+    vocabulary a mesh dim splits, ``vocab_split``) and int ``labels``
+    (...): ``logsumexp(lg, -1)`` in its max-shifted form and the label's
+    logit, on each rank's own shard of ``lg`` (a partial sum reduced
+    first), reduced over the mesh dims that split the vocabulary (see
+    the module note). Both come back as DTensors with ``lg``'s leading
+    placements; the labels are laid out to match."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = lg.device_mesh
+    v = lg.ndim - 1
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in lg.placements)
+    lead = _leading(pl, v)
+    vdims = _split_dims(pl, v)
+    lg_l = _local(lg, pl)
+    lab = _local(S.as_replicated(labels, mesh), lead).long()
+    _, offset = compute_local_shape_and_global_offset(lg.shape, mesh, pl)
+    n = lg_l.shape[-1]
+    m = lg_l.detach().amax(dim=-1)
+    for d in vdims:
+        m = funcol.all_reduce(m, "max", (mesh, d))
+    # as logsumexp: a row whose max is infinite is shifted by 0
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    sumexp = torch.exp(lg_l - m[..., None]).sum(dim=-1)
+    at = lab - offset[v]
+    hit = (at >= 0) & (at < n)
+    pick = torch.gather(lg_l, -1, at.clamp(0, n - 1)[..., None])[..., 0]
+    pick = torch.where(hit, pick, torch.zeros_like(pick))
+    part = tuple(Partial() if i in vdims else p for i, p in enumerate(lead))
+
+    def reduced(t):
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, lead)
+    lse = DTensor.from_local(m, mesh, lead, run_check=False) \
+        + torch.log(reduced(sumexp))
+    return lse, reduced(pick)
 
 
 def split_by_rows(x) -> bool:

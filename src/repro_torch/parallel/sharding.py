@@ -147,6 +147,16 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def as_replicated(x, mesh):
+    """A plain tensor as a replicated DTensor on ``mesh`` (its own
+    storage); a DTensor passes."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def redistribute_to(x, spec):
     """A DTensor ``x`` redistributed to ``spec`` on its mesh, after the
     divisibility fallback (``safe_spec``); the same object where its
@@ -174,6 +184,86 @@ def gather_last(x):
     pl = last_gathered(x)
     return x if pl == tuple(x.placements) else \
         x.redistribute(x.device_mesh, pl)
+
+
+def batch_chunks(x, dim: int, k: int) -> list:
+    """A DTensor's ``k`` chunks of consecutive rows along its batch dim
+    ``dim`` (the JAX package's microbatches), each laid out as ``x`` is:
+    its rows split over the same mesh dims. Microbatch i's rows lie on
+    the i-th k-th of the ranks that split the batch, so each rank sends
+    the k-th parts of its rows to the k ranks that hold them in the
+    microbatch and receives one part a microbatch (``_exchange_rows``:
+    point to point, nothing gathered). A split that does not fall so (k
+    not dividing the ranks, or their rows) raises: gathering the batch
+    would hold it whole on every rank. For data only (no gradient)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    split = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+             and p.dim == dim]
+    if not split:
+        return list(x.chunk(k, dim=dim))
+    n = 1
+    for i in split:
+        n *= mesh.mesh.shape[i]
+    rows = x.shape[dim]
+    if rows % n or n % k or (rows // n) % k:
+        raise ValueError(f"{rows} rows split over {n} ranks do not make "
+                         f"{k} microbatches of whole parts a rank")
+    return [DTensor.from_local(part, mesh, pl, run_check=False)
+            for part in _exchange_rows(x, dim, k, split, n)]
+
+
+def _exchange_rows(x, dim: int, k: int, split, n: int) -> list:
+    """This rank's local rows of each of ``x``'s ``k`` microbatches.
+    Batch rank q (this rank's index over the mesh dims ``split``, major
+    first) holds rows q b .. (q + 1) b, b = B / n; microbatch i is held
+    by batch ranks i n / k .. (i + 1) n / k, and batch rank r holds its
+    rows r c .. (r + 1) c, c = b / k, all from batch rank i n / k + r //
+    k at offset (r % k) c. So each rank sends its k parts of c rows to
+    batch ranks (q mod n / k) k + u and receives one part a microbatch."""
+    import torch.distributed as dist
+    mesh = x.device_mesh
+    local = x.to_local()
+    c = local.shape[dim] // k
+    coord = list(mesh.get_coordinate())
+    sizes = [mesh.mesh.shape[i] for i in split]
+
+    def batch_rank(coords) -> int:
+        q = 0
+        for i, size in zip(split, sizes):
+            q = q * size + coords[i]
+        return q
+
+    def global_rank(q: int) -> int:
+        at = list(coord)
+        for i, size in reversed(list(zip(split, sizes))):
+            at[i] = q % size
+            q //= size
+        return int(mesh.mesh[tuple(at)])
+
+    me, per = batch_rank(coord), n // k
+    sends = [(global_rank((me % per) * k + u),
+              local.narrow(dim, u * c, c).contiguous()) for u in range(k)]
+    recvs = [(global_rank(i * per + me // k), torch.empty_like(
+        local.narrow(dim, 0, c), memory_format=torch.contiguous_format))
+        for i in range(k)]
+    own = dist.get_rank()
+    for src, buf in recvs:
+        if src == own:                  # this rank's own rows
+            buf.copy_(local.narrow(dim, (me % k) * c, c))
+    ops = [(dist.isend, t, peer) for peer, t in sends if peer != own] + \
+        [(dist.irecv, t, peer) for peer, t in recvs if peer != own]
+    if local.device.type == "meta":
+        # the dry run's fake group: batch_isend_irecv wants a backend
+        # for the tensors' device, and no data moves
+        reqs = [op(t, peer) for op, t, peer in ops]
+    else:
+        reqs = dist.batch_isend_irecv([dist.P2POp(op, t, peer)
+                                       for op, t, peer in ops]) \
+            if ops else []
+    for r in reqs:
+        r.wait()
+    return [buf for _, buf in recvs]
 
 
 def splittable(x, dim: int, parts: int):

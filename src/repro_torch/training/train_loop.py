@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.transformer import forward, mtp_logits
-from repro_torch.parallel.sharding import gather_last
+from repro_torch.parallel.local_calls import vocab_parallel_ce, vocab_split
+from repro_torch.parallel.sharding import batch_chunks, is_dtensor
 from repro_torch.training.optimizer import OptimizerConfig, make_adamw
 from repro_torch.tree import leaves, map_tree, unflatten
 
@@ -37,12 +38,17 @@ class TrainConfig:
 
 
 def cross_entropy(logits, labels, z_coef: float = 0.0):
-    """Mean CE over all tokens (fp32), with optional z-loss."""
+    """Mean CE over all tokens (fp32), with optional z-loss. Logits whose
+    vocabulary a mesh splits take the log-sum-exp and the label pick on
+    each rank's slice (``local_calls.vocab_parallel_ce``); the rest,
+    plain tensors and DTensors with the vocabulary whole (a one-rank
+    model axis), the plain ops."""
     lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    # vocab-sharded logits (a step built on a mesh) are gathered along
-    # the vocabulary for the label pick
-    ll = torch.gather(gather_last(lg), -1, labels[..., None].long())[..., 0]
+    if vocab_split(lg):
+        lse, ll = vocab_parallel_ce(lg, labels)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
     loss = torch.mean(lse - ll)
     if z_coef:
         loss = loss + z_coef * torch.mean(torch.square(lse))
@@ -86,12 +92,15 @@ def split_batch(batch: Dict[str, torch.Tensor], k: int
                 ) -> List[Dict[str, torch.Tensor]]:
     """``k`` microbatches of consecutive rows: every leaf cut on axis 0,
     M-RoPE positions (P, B, S) on axis 1 (the JAX package's
-    ``split_leaf``)."""
+    ``split_leaf``). A DTensor leaf's microbatches keep its batch split
+    (``sharding.batch_chunks``)."""
     def cut(name, x):
         axis = 1 if name == "positions" and x.ndim == 3 else 0
         if x.shape[axis] % k:
             raise ValueError(f"batch leaf {name!r} of {x.shape[axis]} rows "
                              f"does not split into {k} microbatches")
+        if is_dtensor(x):
+            return batch_chunks(x, axis, k)
         return x.chunk(k, dim=axis)
     parts = {name: cut(name, x) for name, x in batch.items()}
     return [{name: p[i] for name, p in parts.items()} for i in range(k)]
@@ -129,8 +138,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             def acc_dtype(p):
                 return p.dtype if opt_cfg.eight_bit_moments \
                     else torch.float32
-            gsum = map_tree(lambda p: torch.zeros(
-                p.shape, dtype=acc_dtype(p), device=p.device), params)
+            gsum = map_tree(lambda p: torch.zeros_like(
+                p, dtype=acc_dtype(p)), params)
             ms = []
             for mb in split_batch(batch, k):
                 g, m = grads_of(params, mb)

@@ -40,6 +40,7 @@ from repro_torch.analysis.count import count_call
 from repro_torch.kernels import ops
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import forward, init_params
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 2, 64
@@ -459,7 +460,8 @@ def test_dryrun_cell_on_a_fake_group(cells, shape):
     specs (each dim over its axes' product), work counted, collectives
     counted (train: all-gathers; decode: the all-reduces that join each
     rank's attention over its rows of the sequence-sharded cache, which
-    is not gathered), the fields the roofline reads."""
+    is not gathered), the memory record (a peak and a largest allocation
+    no larger), the fields the roofline reads."""
     got = cells[shape]
     rec = got["rec"]
     assert rec["status"] == "ok", rec
@@ -474,11 +476,12 @@ def test_dryrun_cell_on_a_fake_group(cells, shape):
         assert "all-gather" not in rec["collectives"]
     else:
         assert rec["collectives"]["all-gather"]["count"] > 0
-    assert rec["temp_size_in_bytes"] is None
+    temp, largest = rec["temp_size_in_bytes"], rec["largest_allocation"]
+    assert isinstance(temp, int) and 0 < largest["bytes"] <= temp
     assert set(rec["counted_by"]) >= {
         "dot_flops", "traffic_bytes", "collectives",
         "argument_size_in_bytes", "output_size_in_bytes",
-        "temp_size_in_bytes"}
+        "temp_size_in_bytes", "largest_allocation"}
     assert roofline.analyze(rec)["dominant"] in ("compute", "memory",
                                                  "collective")
 

@@ -29,6 +29,7 @@ from repro_torch.models.efficientnet import (DiscriminatorConfig,
 from repro_torch.models.unet import init_unet
 from repro_torch.serving.cluster import ClusterBackend, ClusterRuntime
 from repro_torch.serving.profiles import default_serving
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 # DDIM at t=999 multiplies eps error by 1/sqrt(1e-5) ~ 316 (see

@@ -50,6 +50,7 @@ from repro_torch.serving.profiles import CASCADES, default_serving
 from repro_torch.serving.simulator import Query
 from repro_torch.serving.trace import static_trace
 from test_torch_control import plain
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

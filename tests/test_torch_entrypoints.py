@@ -27,6 +27,7 @@ from repro.models.transformer import count_params as jax_count_params
 from repro import configs as jconfigs
 from repro_torch.kernels.impls import TORCH_KERNEL_IMPLS, resolve_kernel_impl
 from repro_torch.launch import serve as tserve
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SRC = REPO / "src"

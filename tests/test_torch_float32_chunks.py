@@ -32,6 +32,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.convert import lm_from_jax
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import forward
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 B, C = 2, 8

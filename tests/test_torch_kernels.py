@@ -32,6 +32,7 @@ from repro_torch.kernels import mamba_scan as tmamba
 from repro_torch.kernels import mlstm_chunk as tmlstm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import swiglu as tswiglu
+from torch_threads import one_thread  # noqa: F401
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 REPO = Path(__file__).resolve().parents[1]

@@ -31,6 +31,7 @@ from repro_torch.models import layers
 from repro_torch.models.convert import from_jax, lm_from_jax
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import count_params, forward, init_params
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 TF_TOL = dict(atol=2e-3, rtol=2e-3)

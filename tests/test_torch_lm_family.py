@@ -40,6 +40,7 @@ from repro_torch.models.convert import lm_from_jax
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import (count_params, forward,
                                             init_params, mtp_logits)
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 KERNEL_TOL = dict(atol=3e-5, rtol=3e-5)

@@ -30,6 +30,7 @@ from repro_torch.models.efficientnet import (DiscriminatorConfig,
                                              confidence_score,
                                              init_discriminator)
 from repro_torch.models.unet import apply_unet, init_unet
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 # DDIM's first step divides by sqrt(alpha_bar) at t=999, where alpha_bar

@@ -66,6 +66,32 @@ TRAIN_CASES = {
     "smollm-135m-fsdp-8bit": ("smollm-135m", {"d_model": 384, "fsdp": True,
                                               "opt_8bit_moments": True}),
 }
+# the train cases that split their batch into microbatches (the rest take
+# one): DeepSeek-V3's MoE routes each microbatch's tokens together and its
+# MTP head reads the microbatch's labels, so each microbatch must be the
+# same consecutive rows as in the JAX step
+MICROBATCHES = {"deepseek-v3-671b-mb2": 2}
+TRAIN_CASES["deepseek-v3-671b-mb2"] = ("deepseek-v3-671b", {})
+# the cross entropy's cases: the logits' placements on the 2 x 2
+# ("data", "model") mesh and whether the labels come as a DTensor split
+# by batch; (4, 6, 12) float32 logits, so each model rank holds 6 of the
+# 12 classes where the vocabulary is split (the vocab-parallel pick: the
+# first three cases; a partial sum over the data axis reduced first),
+# and with the vocabulary whole the plain ops run on the DTensors
+CE_SHAPE, CE_Z = (4, 6, 12), 1e-2
+CE_CASES = {"batch-vocab": (("S0", "S2"), True),
+            "vocab": (("R", "S2"), False),
+            "partial-vocab": (("P", "S2"), False),
+            "batch": (("S0", "R"), True)}
+# ``sharding.batch_chunks``' cases: (shape, placements on the 2 x 2
+# mesh, batch dim, microbatches): the rows split over the data axis, over
+# both axes (as the multi-pod mesh splits the batch over two), M-RoPE
+# positions' batch on dim 1, and 4 microbatches of a batch the 2-way
+# data axis splits (4 does not divide 2 ranks: it raises)
+CHUNK_CASES = {"data": ((4, 3, 5), ("S0", "R"), 0, 2),
+               "both-axes": ((8, 3), ("S0", "S0"), 0, 2),
+               "positions": ((3, 4, 6), ("S1", "R"), 1, 2),
+               "uneven": ((8, 3), ("S0", "R"), 0, 4)}
 # Yi-9B reduced, by the fields replaced: 4 KV heads divide the 2-way
 # model axis (head-sharded cache); at 1 KV head the cache is
 # sequence-sharded, prefill splits the 4 query heads and decode joins the
@@ -87,6 +113,17 @@ def _collective_inputs():
             "g2": rng.standard_normal((4, 3, 2)).astype(np.float32),
             "W": (rng.standard_normal((4, 8, 8)) * 0.3).astype(np.float32),
             "xs": rng.standard_normal((6, 2, 8)).astype(np.float32)}
+
+
+def _ce_inputs():
+    rng = np.random.default_rng(4)
+    logits = (rng.standard_normal(CE_SHAPE) * 3).astype(np.float32)
+    labels = rng.integers(0, CE_SHAPE[-1], CE_SHAPE[:-1]).astype(np.int32)
+    return logits, labels
+
+
+def _train_config(module, case):
+    return module.TrainConfig(microbatches=MICROBATCHES.get(case, 1))
 
 
 def _tokens(seed, shape):
@@ -141,7 +178,7 @@ def _jax_train(case, jp, batch):
     import jax
     from repro.training import train_loop as R
     jcfg, _ = _train_cfgs(case)
-    init, step = R.make_train_step(jcfg, R.TrainConfig())
+    init, step = R.make_train_step(jcfg, _train_config(R, case))
     _, _, m = jax.jit(step)(jp, init(jp), batch)
     return {k: float(v) for k, v in m.items()}
 
@@ -159,6 +196,23 @@ def _jax_serve(case, jp, toks):
                                cache=cache, cache_index=S + i, mode="decode")
         out.append(np.asarray(lg[:, -1]))
     return np.stack(out)
+
+
+def _ce_references():
+    """The JAX package's and the unsharded port's cross entropy (z-loss
+    ``CE_Z``) of the CE inputs: (value, gradient) each."""
+    import jax
+    import jax.numpy as jnp
+    from repro.training.train_loop import cross_entropy as jce
+    from repro_torch.training.train_loop import cross_entropy
+    logits, labels = _ce_inputs()
+    v, g = jax.value_and_grad(lambda x: jce(x, jnp.asarray(labels), CE_Z))(
+        jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    loss = cross_entropy(x, torch.from_numpy(labels), CE_Z)
+    loss.backward()
+    return {"jax": (float(v), np.asarray(g)),
+            "port": (float(loss), x.grad.numpy())}
 
 
 def _port_tree(jp, tcfg):
@@ -197,8 +251,8 @@ def subprocess_main(out_dir: str) -> None:
     import jax
     import torch.multiprocessing as mp
     from repro.models.transformer import init_params
-    from repro_torch.training.train_loop import TrainConfig, \
-        make_train_step
+    from repro_torch.training import train_loop as T_loop
+    from repro_torch.training.train_loop import make_train_step
     out = Path(out_dir)
     inp = _collective_inputs()
     params, jparams = {}, {}
@@ -217,12 +271,12 @@ def subprocess_main(out_dir: str) -> None:
     ranks = mp.spawn(_worker, args=(WORLD, out_dir), nprocs=WORLD,
                      join=False)
     ref = {"coll": _jax_collectives(inp), "train": {}, "serve": {},
-           "port_train": {}, "port_serve": {}}
+           "port_train": {}, "port_serve": {}, "ce": _ce_references()}
     for case in TRAIN_CASES:
         _, tcfg = _train_cfgs(case)
         p, batch = params[case]
         ref["train"][case] = _jax_train(case, jparams[case], batch)
-        init, step = make_train_step(tcfg, TrainConfig())
+        init, step = make_train_step(tcfg, _train_config(T_loop, case))
         new_p, new_o, m = step(p, init(p), {k: torch.from_numpy(v)
                                             for k, v in batch.items()})
         ref["port_train"][case] = (new_p, new_o,
@@ -247,12 +301,17 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
     data = torch.load(out / "inputs.pt", weights_only=False)
     got = {"coll": _port_collectives(data["inputs"], rank)}
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    got["ce"] = {c: _sharded_ce(c, mesh) for c in CE_CASES}
+    got["chunks"] = {c: _sharded_chunks(c, mesh) for c in CHUNK_CASES}
     calls = _record_attention_calls()
-    got["train"], got["serve"], got["calls"] = {}, {}, {}
+    picks = _record_label_picks()
+    got["train"], got["serve"], got["calls"], got["picks"] = {}, {}, {}, {}
     for c in TRAIN_CASES:
         got["train"][c] = _sharded_train(c, mesh, *data["params"][c])
         got["calls"][c] = list(calls)
+        got["picks"][c] = list(picks)
         calls.clear()
+        picks.clear()
     for c in SERVE_CASES:
         got["serve"][c] = _sharded_serve(c, mesh,
                                          *data["params"][("serve", c)])
@@ -260,7 +319,7 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
         calls.clear()
     # ranks 0 and 1: data 0, model 0 and 1
     if rank < 2:
-        torch.save(got["calls"], out / f"calls{rank}.pt")
+        torch.save((got["calls"], got["picks"]), out / f"calls{rank}.pt")
     if rank == 0:
         torch.save(got, out / "got.pt")
     dist.barrier()
@@ -286,6 +345,93 @@ def _record_attention_calls():
         setattr(ops, name, recorded(name, getattr(ops, name)))
         ops.PLAIN[name] = recorded(name, ops.PLAIN[name])
     return calls
+
+
+def _record_label_picks():
+    """Wraps the train loop's ``cross_entropy`` so that each call on this
+    rank appends (the logits' local shape, the operand shapes of the
+    all-gathers the call ran on this rank); returns the list."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.training import train_loop
+    picks = []
+
+    class Gathers(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented   # the local ops are what run
+            if func._schema.name.startswith(
+                    "_c10d_functional::all_gather"):
+                self.shapes.append(tuple(args[0].shape))
+            return func(*args, **(kwargs or {}))
+
+    inner = train_loop.cross_entropy
+
+    def recorded(logits, labels, z_coef=0.0):
+        with Gathers() as g:
+            loss = inner(logits, labels, z_coef)
+        picks.append((tuple(logits.to_local().shape), g.shapes))
+        return loss
+    train_loop.cross_entropy = recorded
+    return picks
+
+
+def _placement(code):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return {"R": Replicate(), "P": Partial()}.get(code) \
+        or Shard(int(code[1:]))
+
+
+def _sharded_ce(case, mesh):
+    """The port's ``cross_entropy`` (z-loss ``CE_Z``) of the CE inputs
+    laid out by ``CE_CASES[case]``: (value, the logits' full gradient)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, \
+        distribute_tensor
+    from repro_torch.training.train_loop import cross_entropy
+    codes, dt_labels = CE_CASES[case]
+    pl = tuple(_placement(c) for c in codes)
+    logits, labels = (torch.from_numpy(a) for a in _ce_inputs())
+    if any(c == "P" for c in codes):
+        # each data rank's share of a partial sum: half the logits
+        local = distribute_tensor(logits, mesh, tuple(
+            Replicate() if c == "P" else p for c, p in zip(codes, pl)))
+        x = DTensor.from_local(local.to_local() / 2, mesh, pl,
+                               run_check=False)
+        x = x.detach().requires_grad_(True)
+    else:
+        x = distribute_tensor(logits, mesh, pl).requires_grad_(True)
+    if dt_labels:
+        labels = distribute_tensor(labels, mesh, (Shard(0), Replicate()))
+    loss = cross_entropy(x, labels, CE_Z)
+    loss.backward()
+    return float(loss.full_tensor()), x.grad.full_tensor()
+
+
+def _chunk_input(case):
+    shape = CHUNK_CASES[case][0]
+    return torch.arange(int(np.prod(shape)), dtype=torch.float32) \
+        .reshape(shape)
+
+
+def _sharded_chunks(case, mesh):
+    """``batch_chunks`` of the case's input laid out on the mesh: each
+    microbatch's (full tensor, placements, local shape), or the message
+    it raised."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.parallel.sharding import batch_chunks
+    _, codes, dim, k = CHUNK_CASES[case]
+    x = distribute_tensor(_chunk_input(case), mesh,
+                          tuple(_placement(c) for c in codes))
+    try:
+        parts = batch_chunks(x, dim, k)
+    except ValueError as e:
+        return str(e)
+    return [(p.full_tensor(), tuple(p.placements),
+             tuple(p.to_local().shape)) for p in parts]
 
 
 def _gather_rows(t, group):
@@ -326,12 +472,12 @@ def _port_collectives(inp, rank):
 def _sharded_train(case, mesh, p, batch):
     from repro_torch.launch import steps
     from repro_torch.parallel.sharding import distribute, full
-    from repro_torch.training.train_loop import TrainConfig, \
-        make_train_step
+    from repro_torch.training import train_loop
+    from repro_torch.training.train_loop import make_train_step
     _, tcfg = _train_cfgs(case)
-    step, (ps, os_, _), specs = steps.build_train_step(tcfg, mesh,
-                                                       TrainConfig())
-    init, _ = make_train_step(tcfg, TrainConfig())
+    step, (ps, os_, _), specs = steps.build_train_step(
+        tcfg, mesh, _train_config(train_loop, case))
+    init, _ = make_train_step(tcfg, _train_config(train_loop, case))
     b = {k: torch.from_numpy(v) for k, v in batch.items()}
     new_p, new_o, m = step(
         distribute(p, steps.named_safe(mesh, specs["params"], ps)),
@@ -376,8 +522,9 @@ def results(tmp_path_factory):
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=420)
     assert r.returncode == 0, r.stderr[-4000:]
     got = torch.load(out / "got.pt", weights_only=False)
-    got["calls"] = [torch.load(out / f"calls{r}.pt", weights_only=False)
-                    for r in (0, 1)]
+    got["calls"], got["picks"] = zip(*[
+        torch.load(out / f"calls{r}.pt", weights_only=False)
+        for r in (0, 1)])
     return torch.load(out / "ref.pt", weights_only=False), got
 
 
@@ -474,15 +621,69 @@ def _assert_calls(got, case):
                 for n, qs, ks, *vls, lse in want], (case, rank)
 
 
+@pytest.mark.parametrize("case", list(CE_CASES))
+def test_vocab_parallel_cross_entropy_matches_plain_and_jax(results, case):
+    """The port's cross entropy with z-loss on logits laid out by
+    ``CE_CASES[case]`` on the 2 x 2 mesh (the label pick on each rank's
+    vocabulary slice): its value and the logits' gradient against the
+    unsharded port's and the JAX package's, with labels in both model
+    ranks' slices."""
+    ref, got = results
+    _, labels = _ce_inputs()
+    half = CE_SHAPE[-1] // 2
+    assert (labels < half).any() and (labels >= half).any()
+    value, grad = got["ce"][case]
+    for want_value, want_grad in (ref["ce"]["port"], ref["ce"]["jax"]):
+        np.testing.assert_allclose(value, want_value, **MODEL_TOL)
+        np.testing.assert_allclose(grad.numpy(), want_grad, **MODEL_TOL)
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_batch_chunks_keep_the_rows_and_the_split(results, case):
+    """``sharding.batch_chunks`` on the 2 x 2 mesh: each microbatch holds
+    the consecutive rows that ``chunk`` gives the whole tensor, laid out
+    as the input was, each rank holding its share of the microbatch's
+    rows; a split it cannot keep raises."""
+    _, got = results
+    shape, codes, dim, k = CHUNK_CASES[case]
+    if case == "uneven":
+        assert "do not make 4 microbatches" in got["chunks"][case]
+        return
+    want = _chunk_input(case).chunk(k, dim=dim)
+    split = 2 ** sum(c == f"S{dim}" for c in codes)
+    assert len(got["chunks"][case]) == k
+    for (full, pl, local), w in zip(got["chunks"][case], want):
+        torch.testing.assert_close(full, w, atol=0, rtol=0)
+        assert pl == tuple(_placement(c) for c in codes)
+        assert local[dim] == w.shape[dim] // split
+
+
+def _assert_vocab_parallel(got, case):
+    """Each cross entropy of the case's step ran on ranks 0 and 1 on its
+    own half of the vocabulary and its own rows, and gathered nothing:
+    the loss's and, with the MTP head, the MTP loss's, once a
+    microbatch."""
+    _, tcfg = _train_cfgs(case)
+    rows = B // 2 // MICROBATCHES.get(case, 1)
+    per_mb = 2 if tcfg.mtp_depth else 1
+    for picks in got["picks"]:
+        assert len(picks[case]) == per_mb * MICROBATCHES.get(case, 1)
+        for shape, gathers in picks[case]:
+            assert shape[0] == rows and shape[-1] == tcfg.vocab_size // 2
+            assert gathers == [], (case, gathers)
+
+
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_built_train_step_matches_unsharded_and_jax(results, case):
     """build_train_step on the 2 x 2 mesh: metrics against the unsharded
     port step and the JAX step, new parameters and optimizer state
     against the unsharded port step (``TRAIN_CASES`` says what each case
     goes through); the attention split each rank took
-    (``EXPECTED_CALLS``)."""
+    (``EXPECTED_CALLS``); each label pick on the rank's own rows and
+    vocabulary slice, with no all-gather."""
     ref, got = results
     _assert_calls(got, case)
+    _assert_vocab_parallel(got, case)
     new_p, new_o, m = got["train"][case]
     up, uo, um = ref["port_train"][case]
     assert set(m) == set(um) == set(ref["train"][case])

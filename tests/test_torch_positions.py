@@ -32,6 +32,7 @@ from repro_torch.models import layers
 from repro_torch.models.convert import lm_from_jax
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import forward
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 KERNEL_TOL = dict(atol=3e-5, rtol=3e-5)

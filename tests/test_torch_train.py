@@ -41,6 +41,7 @@ from repro_torch.models.convert import lm_from_jax, lm_to_jax
 from repro_torch.training import train_loop as T_tl
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.tree import leaves, unflatten
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 GRAD_TOL = 5e-5

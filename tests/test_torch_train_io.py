@@ -45,6 +45,7 @@ from repro_torch.training import grad_compress as T_gc
 from repro_torch.training import train_loop as T_tl
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.tree import leaves, unflatten
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 GRAD_TOL = 5e-5

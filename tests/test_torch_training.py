@@ -49,6 +49,7 @@ from repro_torch.models.efficientnet import (DiscriminatorConfig,
 from repro_torch.training.data import (DiscriminatorBatcher,
                                        degraded_images, natural_images)
 from repro_torch.tree import leaves, map_tree, unflatten
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SRC = REPO / "src"
