@@ -188,7 +188,17 @@ before the next, in bfloat16 with random weights:
     record (``analysis.count.Live``) and once on the card, the record's
     peak printed beside ``max_memory_allocated`` after
     ``reset_peak_memory_stats`` (``step memory`` line, with the card's
-    name and power limit); reduced deepseek-v3 (MTP, z-loss, 8-bit
+    name and power limit); the same step (one 8 x 512 batch) under
+    ``remat="none"``, the config's ``dots_nb`` and ``full`` with
+    deterministic algorithms on (``remat_training``): metrics and new
+    trees equal bit for bit, each policy's median of 8 steps (CUDA
+    events), a profiler trace of one step (device busy time, host op
+    calls) and ``step memory`` line, the checkpointed steps holding less
+    above the resident bytes; then the chunks' checkpoints nested in the
+    periods' (``nested_remat``: xlstm-125m at 2 x 512 steps and
+    smollm-135m at 2 x 2048 tokens, full width and depth, bfloat16,
+    ``dots_nb`` against ``none`` bit for bit, a ``step memory`` line
+    each); reduced deepseek-v3 (MTP, z-loss, 8-bit
     moments) for one step in 2 microbatches on the card and on the CPU,
     metrics within 1e-3; 6 ``diffusion_loss`` AdamW steps of the served
     tier-0 UNet at full width, batch 4, timed.
@@ -384,6 +394,15 @@ SERVE_ARGV = ["--cascade", "sdturbo", "--duration", "60"]
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 8, 512
 TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_LR, TRAIN_SEED = 16, 8, 1e-3, 95
 LAUNCH_STEPS = 4
+# the same TRAIN_ARCH step under remat "none", under its config's policy
+# ("dots_nb") and under "full": REMAT_STEPS timed calls each
+REMAT_STEPS = 8
+# checkpoints nested in the periods': (arch at its full width and dtype,
+# batch, tokens a sequence, whether to take the record over meta) whose
+# plain recurrence or attention runs in more than one chunk; xlstm-125m
+# takes no record: its sLSTM's step loop over meta under the record
+# takes ~1 min a policy on the host
+NESTED_REMAT = (("xlstm-125m", 2, 512, False), ("smollm-135m", 2, 2048, True))
 DS_TRAIN_BATCH, DS_TRAIN_SEQ = 4, 32
 DIFF_TRAIN_BATCH, DIFF_TRAIN_STEPS, DIFF_TRAIN_LR = 4, 6, 1e-4
 # the float32 flash routes with a query offset and query positions:
@@ -1412,11 +1431,13 @@ def check_routes(torch, what, dtype, head_dim, way, n_flash):
     return routes
 
 
-def trace_call(torch, fn):
+def trace_call(torch, fn, host_ops=0):
     """torch.profiler over one call of ``fn`` (warmed up first): host
     wall, device busy time (union of the card's kernel intervals), the
     idle share of the wall, and device time and launches by kernel name,
-    largest first."""
+    largest first. With ``host_ops`` > 0 also the host side: the calls
+    of ``aten::`` ops, the host time attributed to ops (self time summed
+    over every thread) and the ``host_ops`` ops with the most of it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1439,11 +1460,22 @@ def trace_call(torch, fn):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    return {"wall_us": wall_us, "device_busy_us": busy,
-            "idle_share": 1.0 - busy / wall_us,
-            "device_launches": len(kernels),
-            "by_kernel": [{"name": n[:90], "count": c, "us": t}
-                          for n, (c, t) in ranked]}
+    row = {"wall_us": wall_us, "device_busy_us": busy,
+           "idle_share": 1.0 - busy / wall_us,
+           "device_launches": len(kernels),
+           "by_kernel": [{"name": n[:90], "count": c, "us": t}
+                         for n, (c, t) in ranked]}
+    if host_ops:
+        ops = sorted(prof.key_averages(),
+                     key=lambda a: -a.self_cpu_time_total)
+        row["host"] = {
+            "aten_calls": sum(a.count for a in ops
+                              if a.key.startswith("aten::")),
+            "self_us": sum(a.self_cpu_time_total for a in ops),
+            "by_op": [{"name": a.key[:60], "count": a.count,
+                       "self_us": a.self_cpu_time_total}
+                      for a in ops[:host_ops]]}
+    return row
 
 
 def log_trace(what: str, row) -> None:
@@ -1452,6 +1484,12 @@ def log_trace(what: str, row) -> None:
         f"{row['idle_share']:.3f}, {row['device_launches']} device launches")
     for t in row["by_kernel"][:12]:
         log(f"  {t['us']:9.1f} us x{t['count']:4d}  {t['name']}")
+    if "host" in row:
+        h = row["host"]
+        log(f"  host: {h['aten_calls']} aten op calls, {h['self_us']:.0f} "
+            f"us of host time attributed to ops (all threads); most:")
+        for t in h["by_op"]:
+            log(f"  {t['self_us']:9.1f} us x{t['count']:5d}  {t['name']}")
 
 
 def profile_stage(torch, casc, batches=(1, 8)):
@@ -2964,10 +3002,13 @@ def step_memory(torch, label, step, args, meta_args):
     step allocates, its arguments not counted) beside one call on the
     card over ``args``: ``torch.cuda.max_memory_allocated()`` after
     ``reset_peak_memory_stats()``, whole and less the bytes allocated
-    before the call (the arguments and whatever else is resident)."""
+    before the call (the arguments and whatever else is resident).
+    ``meta_args`` None: the card's bytes alone, no record."""
     from repro_torch.analysis.count import Live
-    with Live() as live:
-        step(*meta_args)
+    live = None
+    if meta_args is not None:
+        with Live() as live:
+            step(*meta_args)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2977,13 +3018,16 @@ def step_memory(torch, label, step, args, meta_args):
     peak = torch.cuda.max_memory_allocated()
     del out
     card = _card_line()
-    log(f"step memory {label}: the record over meta {live.peak} bytes "
-        f"(largest allocation {live.largest}); on the card "
-        f"max_memory_allocated {peak} bytes, {peak - base} above the "
-        f"{base} allocated before the step ({card})")
-    if not 0 < live.peak:
+    record = "no record over meta" if live is None else (
+        f"the record over meta {live.peak} bytes (largest allocation "
+        f"{live.largest})")
+    log(f"step memory {label}: {record}; on the card max_memory_allocated "
+        f"{peak} bytes, {peak - base} above the {base} allocated before the "
+        f"step ({card})")
+    if live is not None and not 0 < live.peak:
         fail(f"step memory {label}: the record counted nothing")
-    return {"record_peak_bytes": live.peak, "record_largest": live.largest,
+    return {"record_peak_bytes": None if live is None else live.peak,
+            "record_largest": None if live is None else live.largest,
             "card_peak_bytes": peak, "card_base_bytes": base,
             "card_peak_above_base": peak - base, "card": card}
 
@@ -3070,6 +3114,191 @@ def lm_training(torch, np, cfg):
             "losses": losses, "step_ms": step_ms, "step_median_ms": median,
             "tokens_per_s": tokens / median * 1e3, "peak_bytes": peak,
             "checkpoint_step": at, "memory": memory}
+
+
+def remat_training(torch, np, cfg):
+    """The TRAIN_ARCH step (TRAIN_BATCH x TRAIN_SEQ) from one set of
+    parameters, optimizer state and batch, under ``remat="none"``, under
+    the config's policy (``dots_nb``: each period checkpointed, its
+    weight products saved) and under ``full`` (nothing saved but each
+    period's input; no selective-checkpoint dispatch mode), deterministic
+    algorithms on: the metrics and the new trees must be equal bit for
+    bit. For each policy, the median of REMAT_STEPS calls between CUDA
+    events, a ``torch.profiler`` trace of one step (device busy time and
+    the host's op calls, where the step's time goes) and a ``step
+    memory`` line (the record over ``meta`` beside
+    ``max_memory_allocated`` above the resident bytes). The checkpointed
+    steps must hold less above them than the ``none`` step."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    tcfg = TrainConfig(opt=OptimizerConfig(peak_lr=TRAIN_LR))
+    params = init_params(cfg, seed=TRAIN_SEED, device=DEV)
+    batch = launch_train.make_batch(cfg, np.random.default_rng(TRAIN_SEED),
+                                    TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, 0,
+                                    DEV)
+    meta_p, meta_b = _on_meta(torch, params), _on_meta(torch, batch)
+    card, out, firsts = _card_line(), {}, {}
+    policies = ("none", cfg.remat, "full")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for policy in policies:
+            pcfg = dataclasses.replace(cfg, remat=policy)
+            opt_init, step = make_train_step(pcfg, tcfg)
+            opt = opt_init(params)
+            firsts[policy] = step(params, opt, batch)
+            events = _step_events(torch, REMAT_STEPS)
+            for e0, e1 in events:
+                e0.record()
+                step(params, opt, batch)
+                e1.record()
+            torch.cuda.synchronize()
+            median, step_ms = _median_ms(events)
+            trace = trace_call(torch, lambda: step(params, opt, batch),
+                               host_ops=8)
+            log_trace(f"train {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} remat "
+                      f"{policy}", trace)
+            memory = step_memory(
+                torch, f"train {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} "
+                f"remat {policy}", step, (params, opt, batch),
+                (meta_p, opt_init(meta_p), meta_b))
+            out[policy] = {"median_ms": median, "step_ms": step_ms,
+                           "trace": trace, "memory": memory}
+            log(f"train {cfg.name} remat {policy}: step median "
+                f"{median:.3f} ms (min {step_ms[0]:.3f}, max "
+                f"{step_ms[-1]:.3f}; CUDA events over {REMAT_STEPS} "
+                f"steps), profiled step: wall {trace['wall_us']:.0f} us, "
+                f"device busy {trace['device_busy_us']:.0f} us, "
+                f"{trace['device_launches']} device launches, "
+                f"{trace['host']['aten_calls']} aten op calls; "
+                f"max_memory_allocated "
+                f"{memory['card_peak_above_base']} bytes above the resident "
+                f"{memory['card_base_bytes']}, the record over meta "
+                f"{memory['record_peak_bytes']} ({card})")
+            del opt
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, bad = firsts.pop("none"), []
+    base = out["none"]
+    for policy, b in firsts.items():
+        metrics_equal = set(a[2]) == set(b[2]) and all(
+            torch.equal(a[2][k], b[2][k]) for k in a[2])
+        trees_equal = _bitwise_equal(torch, a[:2], b[:2])
+        row = out[policy]
+        held = (base["memory"]["card_peak_above_base"],
+                row["memory"]["card_peak_above_base"])
+        row.update(metrics_equal=metrics_equal, trees_equal=trees_equal)
+        # (a CPU rehearsal's trace has no device time)
+        ratio = {k: row["trace"][k] / max(base["trace"][k], 1e-9)
+                 for k in ("wall_us", "device_busy_us", "device_launches")}
+        ratio["aten_calls"] = (row["trace"]["host"]["aten_calls"]
+                               / base["trace"]["host"]["aten_calls"])
+        log(f"train {cfg.name} remat {policy} against none: metrics equal "
+            f"{metrics_equal}, new trees equal {trees_equal} (bit for bit); "
+            f"above the resident bytes {held[1]} against {held[0]} "
+            f"({held[1] / held[0]:.4f} x); step median "
+            f"{row['median_ms']:.3f} against {base['median_ms']:.3f} ms "
+            f"({row['median_ms'] / base['median_ms']:.4f} x); profiled "
+            f"step x none: wall {ratio['wall_us']:.4f}, device busy "
+            f"{ratio['device_busy_us']:.4f}, device launches "
+            f"{ratio['device_launches']:.4f}, aten op calls "
+            f"{ratio['aten_calls']:.4f} ({card})")
+        if not (metrics_equal and trees_equal):
+            bad.append(f"remat {policy} changed the step")
+        if not held[1] < held[0]:
+            bad.append(f"remat {policy} held no less memory ({held[1]} "
+                       f"against {held[0]} bytes)")
+    if bad:
+        fail(f"train {cfg.name}: {'; '.join(bad)}")
+    del a, firsts
+    return {"policies": policies, "nested": nested_remat(torch), **out}
+
+
+@contextlib.contextmanager
+def _counted_recompute():
+    """Counts ``remat.recompute``'s calls (each checkpoint run, forward
+    or recomputed) while the context is open."""
+    from repro_torch import remat
+    real, n = remat.recompute, {"calls": 0}
+
+    def counted(fn, *args, **kwargs):
+        n["calls"] += 1
+        return real(fn, *args, **kwargs)
+    remat.recompute = counted
+    try:
+        yield n
+    finally:
+        remat.recompute = real
+
+
+def nested_remat(torch):
+    """Checkpoints inside checkpoints on the card's torch, at the
+    configs' full widths and dtype (NESTED_REMAT): xlstm-125m at 512
+    steps (two 256-step chunks of the plain mLSTM in each mLSTM layer)
+    and smollm-135m at 2048 tokens (two 1024-row query chunks of the
+    plain attention in each layer), one train step under ``remat="none"``
+    (the chunks' own checkpoints) and under the config's ``dots_nb``
+    (those nested in each period's), deterministic algorithms on:
+    metrics and new trees must be equal bit for bit, and the ``dots_nb``
+    step must have run more checkpoints. A ``step memory`` line for
+    each, with the record over ``meta`` where NESTED_REMAT asks for
+    it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    tcfg = TrainConfig(opt=OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                           total_steps=10))
+    rows = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch, B, seq, record in NESTED_REMAT:
+            got, memory = {}, {}
+            full = get_config(arch)
+            for policy in ("none", full.remat):
+                cfg = dataclasses.replace(full, remat=policy)
+                params = init_params(cfg, seed=96, device=DEV)
+                g = torch.Generator(device=DEV).manual_seed(96)
+                toks = torch.randint(0, cfg.vocab_size, (B, seq + 1),
+                                     generator=g, device=DEV)
+                batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+                opt_init, step = make_train_step(cfg, tcfg)
+                with _counted_recompute() as n:
+                    got[policy] = step(params, opt_init(params), batch)
+                torch.cuda.synchronize()
+                got[policy] += (n["calls"],)
+                meta_p = _on_meta(torch, params)
+                memory[policy] = step_memory(
+                    torch, f"train {arch} {B} x {seq} remat {policy} "
+                    f"(nested checkpoints)", step,
+                    (params, opt_init(params), batch),
+                    (meta_p, opt_init(meta_p), _on_meta(torch, batch))
+                    if record else None)
+                del params, meta_p
+            a, b = got["none"], got[full.remat]
+            equal = all(torch.equal(a[2][k], b[2][k]) for k in a[2]) \
+                and _bitwise_equal(torch, a[:2], b[:2])
+            held = {p: m["card_peak_above_base"] for p, m in memory.items()}
+            rows[arch] = {"batch": B, "seq": seq, "dtype": str(full.dtype),
+                          "equal": equal, "memory": memory,
+                          "checkpoints": {"none": a[3], full.remat: b[3]}}
+            log(f"nested checkpoints {arch} at full width, {B} x {seq} "
+                f"tokens, {full.dtype}, torch {torch.__version__}: "
+                f"{full.remat} step equals the none step bit for bit "
+                f"{equal}; checkpoints run {a[3]} (none: the chunks') and "
+                f"{b[3]} ({full.remat}: the periods' with the chunks' nested "
+                f"in them and recomputed); above the resident bytes "
+                f"{held[full.remat]} against {held['none']} "
+                f"({held[full.remat] / held['none']:.4f} x)")
+            if not equal or not 0 < a[3] < b[3]:
+                fail(f"nested checkpoints {arch}: {rows[arch]}")
+            del got, a, b
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return rows
 
 
 def deepseek_training(torch, np):
@@ -3218,6 +3447,8 @@ def training_phase(torch, np, full_cfg):
     ops.reset_launch_counts()
     details["entry_point"] = train_entry_point(torch)
     details["lm"] = lm_training(torch, np, cfg)
+    gc.collect()
+    details["remat"] = remat_training(torch, np, cfg)
     details["deepseek"] = deepseek_training(torch, np)
     gc.collect()
     torch.cuda.empty_cache()

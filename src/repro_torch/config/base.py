@@ -99,8 +99,10 @@ class ModelConfig:
     # Multi-token prediction (DeepSeek-V3)
     mtp_depth: int = 0
 
-    # Implementation knobs of the JAX package (sharding, remat, scan);
-    # kept so that a config is the same data in both packages
+    # Implementation knobs (sharding, scan) of the JAX package, kept so
+    # that a config is the same data in both packages; ``remat`` is the
+    # train step's recomputation in both: none | full | dots | dots_nb
+    # (``repro_torch/remat.py``)
     attn_impl: str = "xla"
     remat: str = "none"
     scan_layers: bool = True

@@ -19,7 +19,13 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 Results land in experiments/dryrun_torch/<mesh>/<arch>__<shape>.json.
-Each record's ``counted_by`` says how each of its fields was counted.
+Each record's ``counted_by`` says how each of its fields was counted,
+and its ``remat`` the config's recomputation policy
+(``repro_torch/remat.py``): a train cell's counts include what the
+backward recomputes (the periods' forward under ``cfg.remat``, the
+plain attention's query chunks and the recurrences' step chunks), as
+XLA's count of the JAX package's step does, and its peak what the
+checkpoints keep.
 """
 from __future__ import annotations
 
@@ -203,7 +209,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(map(str, mesh.mesh.shape)),
            "axes": list(mesh.mesh_dim_names),
-           "n_devices": int(mesh.size()),
+           "n_devices": int(mesh.size()), "remat": cfg.remat,
            "status": "skipped", "overrides": {k: str(v) for k, v in
                                               (overrides or {}).items()}}
     if not applicable(cfg, shape):

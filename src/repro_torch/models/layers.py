@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.impls import resolve_kernel_impl
+from repro_torch.kernels.ref import query_chunks
 from repro_torch.parallel.local_calls import (maybe_local, replicated_call,
                                               rows_product, split_by_rows,
                                               vocab_parallel_embedding,
@@ -171,6 +172,20 @@ def gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
 
 def _gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
                    kv_valid_len=None):
+    B, S = q.shape[:2]
+    if q_positions is None:
+        q_positions = torch.arange(S, device=q.device).expand(B, S)
+
+    def rows(qc, k, v, r0):
+        return _gqa_rows(qc, k, v, causal=causal,
+                         q_positions=q_positions[:, r0:r0 + qc.shape[1]],
+                         kv_valid_len=kv_valid_len)
+    # query chunks under checkpoint where autograd records (the JAX
+    # package's chunks; S is the call's own rows: see ``query_chunks``)
+    return query_chunks(rows, q, k, v)
+
+
+def _gqa_rows(q, k, v, *, causal, q_positions, kv_valid_len):
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -182,8 +197,6 @@ def _gqa_attention(q, k, v, *, causal: bool = True, q_positions=None,
         # fresh K/V: head-sharded scores (a cache stays unconstrained)
         scores = constrain(scores, "batch", "heads", None, None)
     kv_pos = torch.arange(T, device=q.device)
-    if q_positions is None:
-        q_positions = torch.arange(S, device=q.device).expand(B, S)
     ok = torch.ones((B, 1, S, T), dtype=torch.bool, device=q.device)
     if causal:
         ok = ok & (kv_pos[None, None, None, :]

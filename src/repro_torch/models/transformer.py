@@ -28,9 +28,19 @@ per attention layer (flash in train/prefill, decode attention at S = 1,
 flash with a query offset for a prompt chunk at ``cache_index`` > 0);
 ``mamba_scan`` once per Mamba layer and ``mlstm_chunk`` once per mLSTM
 layer. LayerNorm, GELU, the sLSTM and MLA's attention are plain
-PyTorch. Remat has no counterpart. ``impl="unfused"`` runs every kernel
-call as its plain version on any device instead: the route autograd
-differentiates, which the train steps take (``training/train_loop.py``).
+PyTorch. ``impl="unfused"`` runs every kernel call as its plain version
+on any device instead: the route autograd differentiates, which the
+train steps take (``training/train_loop.py``).
+
+Recomputation (``cfg.remat``, ``repro_torch/remat.py``): where autograd
+records a ``train`` forward, each period of the body (the blocks after
+``prefix_pattern``, ``len(period_pattern)`` at a time) runs under one
+checkpoint with the policy ``cfg.remat`` names, as the JAX package
+checkpoints its scanned period. The prefix blocks, the embedding, the
+final norm, the logits and ``mtp_logits`` stay outside, as there. A
+forward with a cache, or one autograd does not record, runs no
+checkpoint. The plain attention's query chunks and the recurrences'
+step chunks (``kernels/ref.py``) nest their own checkpoints inside.
 
 The causal mask follows the query positions, as in the JAX package:
 M-RoPE's t axis or the (B, S) positions a caller passes. A forward given
@@ -39,10 +49,12 @@ are.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 
+from repro_torch import remat
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -198,6 +210,7 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
     cache, aux[, hidden])."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
+    remat.check(cfg.remat)
     if (cache is None) != (mode == "train"):
         raise ValueError(f"mode {mode!r} with cache={cache is not None}: "
                          "train takes no cache, prefill and decode need one")
@@ -221,15 +234,35 @@ def forward(params, cfg: ModelConfig, inputs, *, positions=None, cache=None,
     valid_len = None
     if cache is not None and S == 1:
         valid_len = L.decode_valid_len(slots, B, qpos)
-    aux = 0.0
-    for i, (spec, lp) in enumerate(zip(cfg.flat_pattern(),
-                                       params["layers"])):
-        x, _, a = block_apply(lp, cfg, spec, x, positions=positions,
-                              cache_entry=None if cache is None else cache[i],
-                              cache_index=cache_index, mode=mode, slots=slots,
-                              valid_len=valid_len, q_positions=qpos,
-                              slot_mask=slot_mask, impl=impl)
-        aux = aux + a
+    specs = cfg.flat_pattern()
+    n_pre, period = len(cfg.prefix_pattern), len(cfg.period_pattern)
+
+    def apply(i, x):
+        return block_apply(
+            params["layers"][i], cfg, specs[i], x, positions=positions,
+            cache_entry=None if cache is None else cache[i],
+            cache_index=cache_index, mode=mode, slots=slots,
+            valid_len=valid_len, q_positions=qpos, slot_mask=slot_mask,
+            impl=impl)
+
+    def period_blocks(i0, x, aux):
+        for i in range(i0, i0 + period):
+            x, _, a = apply(i, x)
+            aux = aux + a
+        return x, aux
+
+    aux, i = 0.0, 0
+    while i < len(specs):
+        if i >= n_pre and (i - n_pre) % period == 0 \
+                and cfg.remat != "none" and cache is None \
+                and remat.records(x, params["layers"][i:i + period]):
+            x, aux = remat.recompute(functools.partial(period_blocks, i), x,
+                                     aux, remat=cfg.remat)
+            i += period
+        else:
+            x, _, a = apply(i, x)
+            aux = aux + a
+            i += 1
     hidden = x
     x = L.norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps,
                      impl=impl)

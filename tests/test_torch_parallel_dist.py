@@ -65,6 +65,11 @@ TRAIN_CASES = {
     "xlstm-125m": ("xlstm-125m", {}),
     "smollm-135m-fsdp-8bit": ("smollm-135m", {"d_model": 384, "fsdp": True,
                                               "opt_8bit_moments": True}),
+    # recomputation on DTensors: the periods under the full configs'
+    # policies (the reduced configs take "none"), deepseek-v3's prefix
+    # layer and MTP head outside its checkpoints
+    "smollm-135m-dots_nb": ("smollm-135m", {"remat": "dots_nb"}),
+    "deepseek-v3-671b-full": ("deepseek-v3-671b", {"remat": "full"}),
 }
 # the train cases that split their batch into microbatches (the rest take
 # one): DeepSeek-V3's MoE routes each microbatch's tokens together and its

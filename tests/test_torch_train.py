@@ -191,8 +191,12 @@ def test_loss_fn_with_mtp_matches_jax():
                         _jax_grads(jcfg, jt, jp, batch, 1))
 
 
-def _check_step(arch, k, eight_bit=False):
-    jcfg, tcfg, jp, tp = _pair(arch)
+def _check_step(arch, k, eight_bit=False, **over):
+    """One step against JAX (the module note's tolerances), the configs'
+    fields replaced by ``over`` on both sides; returns (jcfg, tcfg, the
+    JAX optimizer state, the port's, (the port's new parameters, its
+    metrics))."""
+    jcfg, tcfg, jp, tp = _pair(arch, **over)
     batch = _batch(tcfg, 5)
     jt = R_tl.TrainConfig(opt=R_OptimizerConfig(
         **OPT, eight_bit_moments=eight_bit), microbatches=k)
@@ -222,7 +226,7 @@ def _check_step(arch, k, eight_bit=False):
         assert (err <= bound).all(), (i, float(err.max()),
                                       float(bound[err > bound].min()))
     assert int(topt.count) == int(jopt.count) == 1
-    return jcfg, tcfg, jopt, topt
+    return jcfg, tcfg, jopt, topt, (tnew, tm)
 
 
 def lm_to_jax_tree(tree):
@@ -244,7 +248,8 @@ def test_8bit_moment_step_matches_jax():
     are in float32 on both sides): the step as above, and each moment
     within one quantization level of the reference's (a value on a
     rounding edge may go either way)."""
-    jcfg, tcfg, jopt, topt = _check_step("smollm-135m", 2, eight_bit=True)
+    jcfg, tcfg, jopt, topt, _ = _check_step("smollm-135m", 2,
+                                            eight_bit=True)
     for field in ("m", "v"):
         qs = leaves(lm_to_jax(getattr(topt, field), tcfg))
         ss = leaves(lm_to_jax(getattr(topt, field + "_scale"), tcfg))
