@@ -358,6 +358,11 @@ REC_ROUTES = {"mlstm": {"prompt": "chunkwise", "step": "recurrent"},
 # a plain recurrence is a host loop of ~15 launches a step: time it over
 # fewer calls
 PLAIN_REC_ITERS = 3
+# the production meshes' model axis (16 x 16 and 2 x 16 x 16): a rank of
+# it holds a quarter of the 384 value columns of one of xlstm-125m's 4
+# heads, so its mLSTM call is at one head, dk 384, dv 96 (``local_calls``
+# column plan); the rank held here is the sixth (head 1, columns 96-191)
+SPLIT_MODEL_AXIS, SPLIT_RANK = 16, 5
 # decode_32k's outputs are means over 32769 values (typically ~0.01):
 # its bf16 atol is 2e-2 of the largest |output|, not 2e-2 absolute
 DECODE_32K_REL_ATOL = 2e-2
@@ -2230,13 +2235,17 @@ def lm_phase(torch):
 # ---------------------------------------------------------------------------
 # the recurrent-state paths: xlstm-125m and Jamba
 # ---------------------------------------------------------------------------
-def _rec_case(torch, g, kind, shape, dt, extra, fp32):
+def _rec_case(torch, g, kind, shape, dt, extra, fp32, cut=None):
     """(kernel call, plain call, bytes, flops, the peak they run at
     (``PEAK_FLOPS_S``), the kernel's state, the plain version's state) of
     one recorded recurrence call on fresh inputs, in the path's dtypes or
     (``fp32``) all float32. The state is zero (m = -inf) for a prompt and
     one reached mid-sequence for a decode step; each call of the pair
-    gets its own copy, since both overwrite it."""
+    gets its own copy, since both overwrite it. ``cut`` (the mLSTM: the
+    whole model's heads and dv, a head and a first column) makes the
+    state that whole one and hands each call its slice at one head and
+    ``shape``'s dv columns, copied as the column plan on a mesh copies it
+    (``local_calls.copied_slice``)."""
     from repro_torch.kernels import mamba_scan as tmamba
     from repro_torch.kernels import mlstm_chunk as tmlstm
     from repro_torch.kernels import ref
@@ -2253,16 +2262,22 @@ def _rec_case(torch, g, kind, shape, dt, extra, fp32):
         k = rand((B, T, H, dk), typed(dt), dk ** -0.5)
         ip, fp = rand((B, T, H), typed(extra[0])), \
             (rand((B, T, H)) + 2.0).to(typed(extra[0]))
+        Hs, dvs = (H, dv) if cut is None else cut[:2]
         if T == 1:
-            state = (rand((B, H, dk, dv), scale=0.3),
-                     rand((B, H, dk)).abs() + 0.1, rand((B, H)))
+            state = (rand((B, Hs, dk, dvs), scale=0.3),
+                     rand((B, Hs, dk)).abs() + 0.1, rand((B, Hs)))
         else:
-            state = (torch.zeros(B, H, dk, dv, device=DEV),
-                     torch.zeros(B, H, dk, device=DEV),
-                     torch.full((B, H), float("-inf"), device=DEV))
+            state = (torch.zeros(B, Hs, dk, dvs, device=DEV),
+                     torch.zeros(B, Hs, dk, device=DEV),
+                     torch.full((B, Hs), float("-inf"), device=DEV))
+        if cut is not None:
+            from repro_torch.parallel.local_calls import copied_slice
+            head, c0 = cut[2:]
+            state = (copied_slice(state[0], (1, head, 1), (3, c0, dv)),
+                     *(copied_slice(t, (1, head, 1)) for t in state[1:]))
         mine, plain = [t.clone() for t in state], [t.clone() for t in state]
         el = q.element_size()
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * el \
+        nbytes = (q.numel() + k.numel() + 2 * v.numel()) * el \
             + 2 * ip.numel() * ip.element_size() \
             + 2 * sum(t.numel() * 4 for t in state)
         if tmlstm.route(T) == "chunkwise":
@@ -2390,6 +2405,68 @@ def check_recurrent_kernel(torch, calls, arch):
     return entry, rows
 
 
+def check_split_mlstm(torch, calls):
+    """The mLSTM kernel at what one model rank of xlstm-125m is given on
+    the production meshes (``SPLIT_MODEL_AXIS``): the recorded prompt
+    and decode batches at one head, dk 384 and dv 96, its state a copied
+    slice of the whole model's (``_rec_case``'s ``cut``), on both routes;
+    held against the plain version (h and the final state) in float32 and
+    in the path's dtypes, timed in the path's, each case's time and bound
+    logged. Returns the rows."""
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-125m")
+    E = int(cfg.xlstm.proj_factor * cfg.d_model)
+    H = cfg.num_heads
+    dh = E // H                             # dk = dv
+    per_head = SPLIT_MODEL_AXIS // H
+    dvl = dh // per_head
+    head, c0 = SPLIT_RANK // per_head, (SPLIT_RANK % per_head) * dvl
+    g = torch.Generator(device=DEV).manual_seed(71)
+    rows = []
+    seen = sorted({(shape[0][:2], dt, extra) for k, shape, dt, extra
+                   in calls if k == "mlstm"}, key=str)
+    for (B, T), dt, extra in seen:
+        shape = ((B, T, 1, dh), (B, T, 1, dvl))
+        way = REC_ROUTES["mlstm"]["step" if T == 1 else "prompt"]
+        for fp32 in (True, False):
+            kernel, plain, nbytes, flops, peak, st_k, st_p = _rec_case(
+                torch, g, "mlstm", shape, dt, extra, fp32,
+                cut=(H, dh, head, c0))
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            tol = REC_TOL["float32" if fp32 else "bfloat16"]
+            if not torch.isfinite(got).all():
+                fail(f"mlstm_chunk split {shape}: output not finite")
+            torch.testing.assert_close(got, want, **tol)
+            for a, b in zip(st_k, st_p):
+                torch.testing.assert_close(a, b, **REC_TOL["float32"])
+            err = (got.float() - want.float()).abs().max().item()
+            what = (f"mlstm_chunk split ({SPLIT_MODEL_AXIS}-way model axis, "
+                    f"head {head} columns {c0}-{c0 + dvl - 1}) {shape} "
+                    f"{way} {'float32' if fp32 else (dt, extra)}")
+            if fp32:
+                err32 = err
+                log(f"{what}: max|err| {err:.3e} (tol {tol})")
+                continue
+            b_ms, b_by = bound_ms(nbytes, flops, peak)
+            row = {"shape": shape, "route": way, "head": head,
+                   "columns": (c0, c0 + dvl), "max_abs_err": err,
+                   "max_abs_err_float32": err32,
+                   "ms": cuda_ms(torch, kernel),
+                   "plain_ms": cuda_ms(torch, plain, iters=PLAIN_REC_ITERS,
+                                       reps=1),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(f"{what} (tol {tol}): max|err| {err:.3e}; kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP at the {peak} peak)")
+    if {r["route"] for r in rows} != set(REC_ROUTES["mlstm"].values()):
+        fail(f"mlstm_chunk split: routes {[r['route'] for r in rows]}, not "
+             f"both of {sorted(REC_ROUTES['mlstm'].values())}")
+    return rows
+
+
 def max_sm_ghz() -> float:
     """The card's highest SM clock (nvidia-smi), GHz."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -2440,6 +2517,11 @@ def recurrent_phase(torch, arch):
         f"{arch} full width {cfg.num_layers} layers bfloat16")
     path_calls(calls, cfg)
     entry, details["kernel"] = check_recurrent_kernel(torch, calls, arch)
+    if not jamba:
+        details["kernel_split"] = check_split_mlstm(torch, calls)
+        entry["split"] = {r["route"]: {k: r[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err_float32")} for r in details["kernel_split"]}
     if jamba:
         # its attention layers' flash and decode calls (KH 8, G 4), held
         # and timed as Yi-9B's are

@@ -15,10 +15,11 @@ of several runs' ``summary.json`` (two torch versions, say);
 run's ``summary.json`` (``repro.launch.dryrun.run_cell``, one process a
 cell, with ``jax.make_mesh`` wrapped to ``Auto`` axes, on which the
 JAX package's ``constrain`` runs under jax 0.9) and prints port ÷
-reference dot flops, both all-gathers' result bytes and both temp
-bytes (the port's peak live bytes, ``analysis.count.Live``, beside
-XLA's ``temp_size_in_bytes``); it needs JAX and the JAX package, and
-only its child processes import them.
+reference dot flops, both all-gathers' result bytes, both collectives'
+result bytes of all kinds and both temp bytes (the port's peak live
+bytes, ``analysis.count.Live``, beside XLA's ``temp_size_in_bytes``);
+it needs JAX and the JAX package, and only its child processes import
+them.
 
 Usage:
   PYTHONPATH=src python scripts/dryrun_sweep_torch.py --all --both-meshes \
@@ -161,6 +162,10 @@ def against_reference(summary, out_dir: pathlib.Path, jobs: int,
     def gathered(rec):
         return rec["collectives"].get("all-gather", {}).get(
             "result_bytes", 0.0)
+
+    def moved(rec):
+        return sum(c.get("result_bytes", 0.0)
+                   for c in rec["collectives"].values())
     lines = [f"torch {run['torch']} against the JAX package"]
     for c, r in zip(cells, refs):
         key = f"{c['mesh']} {c['arch']} {c['shape']} " \
@@ -174,6 +179,9 @@ def against_reference(summary, out_dir: pathlib.Path, jobs: int,
             f"{r['hlo_dot_flops']:.6e} port/reference "
             f"{c['dot_flops'] / r['hlo_dot_flops']:.4f}; all-gather result "
             f"bytes port {gathered(c):.6e} reference {gathered(r):.6e}; "
+            f"collective result bytes (all kinds) port {moved(c):.6e} "
+            f"reference {moved(r):.6e} port/reference "
+            f"{moved(c) / max(moved(r), 1.0):.4f}; "
             f"temp bytes port {c.get('temp_size_in_bytes')} reference "
             f"{r.get('temp_size_in_bytes')}; port largest allocation "
             f"{largest(c)}")

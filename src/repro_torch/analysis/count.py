@@ -38,6 +38,11 @@ they run, on any device, ``meta`` included, and returns what
   work by formula (``ops.WORK``: what this count gives the kernel's
   plain version) and runs its call uncounted (``Count.kernel``): the
   count is the same on the CPU, the card and ``meta``.
+* **By op** (``Count(by_op=True)``, a diagnostic, off by default: a
+  cell's with ``launch.dryrun.run_cell(..., by_op=True)``): the dot
+  flops also summed by op and operand shapes (a kernel call by its
+  name), largest first, under ``dot_flops_by_op`` in the result: where
+  a cell's count comes from.
 * **Collectives**: the functional collectives DTensor calls, the
   ProcessGroup ops (``c10d``) of ``torch.distributed`` calls, and
   DTensor's all-to-all, by the JAX package's kinds. Operand bytes are
@@ -192,21 +197,24 @@ def _is_dtensor(types) -> bool:
 class Count(TorchDispatchMode):
     """Counts the work of the ops run under it (see the module note)."""
 
-    def __init__(self):
+    def __init__(self, by_op: bool = False):
         super().__init__()
         self.dot_flops = 0.0
         self.traffic_bytes = 0.0
         self.collectives: Dict[str, Dict[str, float]] = defaultdict(
             lambda: {"operand_bytes": 0.0, "result_bytes": 0.0,
                      "count": 0.0})
+        self.by_op = defaultdict(float) if by_op else None
         self._paused = 0
 
     @contextlib.contextmanager
-    def kernel(self, flops: float, nbytes: float):
-        """A kernel call: ``flops`` and ``nbytes`` added, the ops run
-        inside not counted."""
+    def kernel(self, flops: float, nbytes: float, name: str):
+        """A kernel call (``name``): ``flops`` and ``nbytes`` added, the
+        ops run inside not counted."""
         self.dot_flops += flops
         self.traffic_bytes += nbytes
+        if self.by_op is not None:
+            self.by_op[name] += flops
         self._paused += 1
         try:
             yield
@@ -226,8 +234,13 @@ class Count(TorchDispatchMode):
         packet = func.overloadpacket
         if packet in _DOTS:
             lhs = args[_DOTS[packet]]
-            self.dot_flops += 2.0 * out.numel() * lhs.shape[-1]
+            flops = 2.0 * out.numel() * lhs.shape[-1]
+            self.dot_flops += flops
             self.traffic_bytes += 2 * tensor_bytes(out)
+            if self.by_op is not None:
+                shapes = " x ".join(str(tuple(a.shape)) for a in args
+                                    if isinstance(a, torch.Tensor))
+                self.by_op[f"{packet.__name__} {shapes}"] += flops
         elif packet in _WRITES and func not in _ELEMENTWISE:
             self.traffic_bytes += 2 * tensor_bytes(out)
         elif packet in _UPDATES:
@@ -247,10 +260,14 @@ class Count(TorchDispatchMode):
             self.traffic_bytes += 2 * tensor_bytes(res)
 
     def result(self) -> Dict[str, object]:
-        return {"collectives": {k: dict(v)
-                                for k, v in self.collectives.items()},
-                "dot_flops": self.dot_flops,
-                "traffic_bytes": self.traffic_bytes}
+        out = {"collectives": {k: dict(v)
+                               for k, v in self.collectives.items()},
+               "dot_flops": self.dot_flops,
+               "traffic_bytes": self.traffic_bytes}
+        if self.by_op is not None:
+            out["dot_flops_by_op"] = sorted(self.by_op.items(),
+                                            key=lambda kv: -kv[1])
+        return out
 
 
 def _tensors(x):

@@ -95,6 +95,8 @@ def _swiglu_work(gate, up):
     return 0.0, 2 * _bytes(gate)
 
 
+# the mLSTM at the shapes it is given: on a mesh a rank's local call
+# (``local_calls``: its heads, or one head's share of the value columns)
 def _mlstm_work(q, k, v, i_pre, f_pre, C, n, m):
     B, T, H, dk = q.shape
     dv = v.shape[-1]
@@ -125,7 +127,7 @@ def _counted(name: str):
             c = _count.active()
             if c is None:
                 return fn(*args, **kwargs)
-            with c.kernel(*WORK[name](*args, **kwargs)):
+            with c.kernel(*WORK[name](*args, **kwargs), name):
                 return fn(*args, **kwargs)
         return call
     return wrap
@@ -274,18 +276,20 @@ def mamba_scan(u, dt, A, B, C, D, h):
                              A.contiguous(), B, C, D.contiguous(), h)
 
 
-def pick(name: str, impl: str = "fused"):
+def pick(name: str, impl: str = "fused", adapt=None):
     """The function a model's call of kernel ``name`` takes on route
     ``impl`` (``kernels/impls.py``): ``fused`` this module's dispatcher
     (read when called, so a swapped module attribute is seen), ``unfused``
     the plain version (``PLAIN``) on any device. No kernel has a
     backward, so the train steps take ``unfused``: what the JAX package's
     train steps compute, through plain ops that autograd differentiates.
-    Given DTensors (a step built on a mesh, ``launch/steps.py``) either
-    runs on their local shards (``parallel/local_calls.py``)."""
+    ``adapt``, where given, wraps that function first (the mLSTM's call
+    with its heads folded, ``xlstm.mlstm_scan``). Given DTensors (a step
+    built on a mesh, ``launch/steps.py``) it runs on their local shards
+    (``parallel/local_calls.py``)."""
     fn = PLAIN[name] if resolve_kernel_impl(impl) == "unfused" \
         else globals()[name]
-    return local_calls.maybe_local(name, fn)
+    return local_calls.maybe_local(name, fn if adapt is None else adapt(fn))
 
 
 def launch_counts() -> Dict[str, int]:

@@ -197,9 +197,11 @@ def local_bytes(tree) -> int:
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             overrides=None) -> dict:
+             overrides=None, by_op: bool = False) -> dict:
     """One cell's record: the config's fields replaced by
-    ``overrides``, the step built and traced once."""
+    ``overrides``, the step built and traced once; ``by_op`` (a
+    diagnostic, called from Python: no flag sets it) adds the dot flops
+    by op and operand shapes (``Count(by_op=True)``)."""
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -228,7 +230,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             for t, n in zip(trees, names)] + list(extra)
     rec["build_s"] = round(time.time() - t0, 2)
     t1 = time.time()
-    with MetaCache(), Count() as c, Live() as live:
+    with MetaCache(), Count(by_op=by_op) as c, Live() as live:
         out = step(*args)
     rec["trace_s"] = round(time.time() - t1, 2)
     rec["argument_size_in_bytes"] = local_bytes(args)

@@ -7,14 +7,14 @@ sharded dim). So a kernel call that is given a DTensor runs on local
 shards (``call``, reached through ``kernels/ops.pick`` on either route).
 Two plain computations run there too (``maybe_local``): the plain
 attention (``layers.gqa_attention``, planned as flash attention) and the
-sLSTM recurrence (``xlstm.slstm_scan``: by batch, its recurrent weight
-replicated), whose steps DTensor would dispatch one small op at a time:
+sLSTM recurrence (``xlstm.slstm_scan``), whose steps DTensor would
+dispatch one small op at a time:
 
   * every operand is redistributed to its plan: batch on the data axes,
     as the JAX package's ``constrain`` gives it; a norm's operands keep
     their placements with the normalised (last) dim gathered; SwiGLU's
-    ``up`` takes ``gate``'s; the recurrences' operands are split by
-    batch alone;
+    ``up`` takes ``gate``'s; the selective scan's operands are split by
+    batch alone, the xLSTM recurrences' as below;
   * the kernel (or, on the ``unfused`` route, its plain version, which
     autograd differentiates through ``to_local``/``from_local``) runs
     on the local tensors, one launch a call as on one card;
@@ -63,6 +63,61 @@ sequence-sharded cache unsplit), in this order:
     over a cache, which no path calls (a decode step takes
     ``decode_attention`` on both routes). On a model axis of one rank
     every call takes this plan or the first, as on one card.
+
+The xLSTM recurrences split over the model axis as the JAX package's
+compiled step splits them. Its per-device HLO for xlstm-125m at one
+period (6 layers; 16 x 16, the same on 2 x 16 x 16 at half the batch),
+B the rank's batch (8 at ``decode_32k``, 2 at ``prefill_32k``, 16 at
+``train_4k``, 1 at ``long_500k``):
+
+  * the mLSTM scan's carry is C f32[B,1,384,96], n f32[B,1,96], m
+    f32[B,1]: the 16-way model axis splits the flattened E = H dv into
+    4 heads x 4 slices of the value columns, and n's dk over a head's 4
+    ranks. Each step all-gathers q and k f32[B,1,384] within the head's
+    ranks and all-reduces q . n f32[B,1] over them. Afterwards the new
+    state is all-gathered back into the cache's replicated layout, C in
+    two stages (f32[1,B,1,384,384] over the value columns, then
+    f32[1,B,4,384,384] over the heads), n likewise, m f32[1,B,4]. The
+    projections' inputs xc and xb are all-gathered f32[B,S,1536]; the
+    output projection's partial sum is all-reduced f32[B,S,768]; the up
+    projection's halves are moved between ranks (collective-permutes).
+    At ``long_500k`` (batch 1, the data axis idle) q, k, v's projections
+    contract over the data axis too (96 of 1536 a rank, all-reduced over
+    it), and so does the read-out (24 of dk);
+  * the sLSTM scan's carry is c, n, m, h f32[B,48] each (D = 768 split
+    16 ways: a head's 192 hidden units over its 4 ranks), with the gate
+    inputs f32[S,B,192] and the recurrent weight f32[1,192,192] (each
+    gate's 48 columns); each step all-gathers h f32[B,1,192] within the
+    head's ranks, and the states are all-gathered back f32[1,B,768]. The
+    up projection contracts the split units into a partial sum,
+    all-reduced f32[B,S,1024], and the down projection runs whole.
+
+The plans (``_mlstm``, ``_mlstm_columns``, ``_slstm``):
+
+  * the mLSTM, q, k, v with their heads folded ((B, T, H d)). Where each
+    rank's share of v's columns E (split over the model axis M) is whole
+    heads (H % M == 0), every operand is split by heads. Where it is one
+    head's dv H / M columns (M % H == 0, dk divisible by the M / H ranks
+    of a head: xlstm-125m's 4 heads on 16, dk = dv = 384), a rank gets
+    v's and C's columns of its share, q, k and the gates gathered whole
+    on the model axis with its head selected locally, and n and m its
+    head's whole (computed again on each of its head's ranks). The
+    kernel (or its plain version) runs once on contiguous copies of the
+    state slices, and the new C, n, m are joined back over the model
+    axis (C by columns, n by a 1 / (M / H) slice of dk a rank, m from
+    one rank a head) into the cache's own layout. h comes back split by
+    columns, so the output projection contracts a split E into a partial
+    sum. Unlike XLA's step the kernel reads n whole and q, k once for
+    the call. Anything else (a model axis of one rank, a split across
+    heads) keeps the batch-only plan;
+  * the sLSTM, the gate product inside the call. Where the model axis
+    splits the hidden units D (Dl a rank) so that each gate's share lies
+    in one head's recurrent outputs, each rank computes the same Dl
+    units of every gate: the gate product with its (D, 4 Dl) columns of
+    the gathered weight, the states and the output split by units, and
+    at each step one all-gather of h over the model axis (a
+    reduce-scatter in the backward) for the recurrent product of its 4
+    gates' (dh, Dl) columns. Otherwise it runs by batch alone.
 
 An embedding lookup into a table whose rows (the vocabulary) a mesh dim
 splits (``vocab_parallel_embedding``) runs on each rank's own rows with
@@ -276,16 +331,11 @@ def _plan(name: str, ops: list) -> list:
         return [S.logical_placements(t, *(("batch",) if i not in (2, 5)
                                           else (None,)))
                 for i, t in enumerate(ops)]
-    if name == "slstm_scan":
-        # gx, rw, c, n, m, h: the recurrent weight (H, dh, 4 dh) carries
-        # no batch
-        return [S.logical_placements(t, *(("batch",) if i != 1
-                                          else (None,)))
-                for i, t in enumerate(ops)]
     if name == "fused_groupnorm":              # x; scale, bias (C,)
         return [S.logical_placements(ops[0], "batch")] + [
             S.logical_placements(t, None) for t in ops[1:]]
-    # mlstm_chunk: every operand's dim 0 is the batch
+    # the recurrences' batch-only plans: every operand's dim 0 is the
+    # batch
     return [S.logical_placements(t, "batch") for t in ops]
 
 
@@ -305,12 +355,25 @@ def call(name: str, fn: Callable, args: Sequence, kwargs: Dict):
     kwargs = dict(kwargs)
     if name in _ATTENTION:
         return _attention(name, fn, mesh, args, kwargs)
+    if name == "mlstm_chunk":
+        return _mlstm(fn, mesh, args)
+    if name == "slstm_scan":
+        return _slstm(fn, mesh, args)
+    return _run(name, fn, mesh, args, kwargs)
+
+
+def _run(name: str, fn: Callable, mesh, args: list, kwargs: dict,
+         plans=None):
+    """``call``'s common case: each tensor operand under its plan
+    (``plans``, by default ``_plan``'s), the output under the first's."""
+    from torch.distributed.tensor import DTensor
     pos = [i for i, a in enumerate(args) if torch.is_tensor(a)]
     keys = [k for k in _TENSOR_KWARGS.get(name, ())
             if kwargs.get(k) is not None]
     operands = [S.as_replicated(args[i], mesh) for i in pos] + \
         [S.as_replicated(kwargs[k], mesh) for k in keys]
-    plans = _plan(name, operands)
+    if plans is None:
+        plans = _plan(name, operands)
     out_pl = plans[0]
     locs = [_local(t, pl, _grad_placements(pl, out_pl))
             for t, pl in zip(operands, plans)]
@@ -339,6 +402,153 @@ def call(name: str, fn: Callable, args: Sequence, kwargs: Dict):
     if isinstance(out, tuple):
         return tuple(wrap(o) for o in out)
     return wrap(out)
+
+
+def _mlstm(fn: Callable, mesh, args: list):
+    """``call`` for the mLSTM recurrence, q, k, v with their heads folded
+    ((B, T, H d)), then i_pre, f_pre (B, T, H) and the state C, n, m: the
+    plans of the module note."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    args = [S.as_replicated(t, mesh) for t in args]
+    v, C = args[2], args[5]
+    dk, dv = C.shape[2], C.shape[3]
+    vp = S.logical_placements(v, "batch", None, "heads")
+    dims = _split_dims(vp, 2)
+    if dims:
+        local, offset = compute_local_shape_and_global_offset(v.shape, mesh,
+                                                              vp)
+        El, e0 = local[2], offset[2]
+        if El % dv == 0:                    # whole heads a rank
+            axes = [("batch", None, "heads")] * 5 + [("batch", "heads")] * 3
+            return _run("mlstm_chunk", fn, mesh, args, {},
+                        [S.logical_placements(t, *a)
+                         for t, a in zip(args, axes)])
+        if dv % El == 0 and dk % (dv // El) == 0:
+            return _mlstm_columns(fn, mesh, args, vp, dims, e0, El)
+    return _run("mlstm_chunk", fn, mesh, args, {},
+                [S.logical_placements(t, "batch") for t in args])
+
+
+def _mlstm_columns(fn: Callable, mesh, args: list, vp, dims, e0: int,
+                   El: int):
+    """The mLSTM on this rank's ``El`` value columns of one head (from
+    column ``e0`` of the flattened E, split under ``vp`` over the mesh
+    dims ``dims``): the column plan of the module note."""
+    from torch.distributed.tensor import DTensor
+    q, k, v, ip, fp, C, n, m = args
+    H, dk, dv = C.shape[1], C.shape[2], C.shape[3]
+    head, c0 = divmod(e0, dv)
+    R = dv // El                            # ranks a head
+    r = c0 // El                            # this rank's place in its head
+    bp = S.logical_placements(C, "batch")   # batch only: Shard(0) on data
+
+    def of_head(t, size):
+        """``t`` whole on the model axis, its head's ``size`` columns."""
+        gp = _grad_placements(bp, vp)
+        return _local(t, bp, gp).narrow(-1, head * size, size)
+
+    C_l = copied_slice(_local(C, bp), (1, head, 1), (3, c0, El))
+    n_l = copied_slice(_local(n, bp), (1, head, 1))
+    m_l = copied_slice(_local(m, bp), (1, head, 1))
+    h = fn(of_head(q, dk), of_head(k, dk), _local(v, vp), of_head(ip, 1),
+           of_head(fp, 1), C_l, n_l, m_l)
+    with torch.no_grad():
+        Bl = C_l.shape[0]
+        Cf = _join(C_l.reshape(Bl, dk, El), mesh, bp, dims, 2) \
+            .view(Bl, dk, H, dv).permute(0, 2, 1, 3)
+        cut = dk // R
+        nf = _join(n_l.reshape(Bl, dk)[:, r * cut:(r + 1) * cut], mesh, bp,
+                   dims, 1).view(Bl, H, dk)
+        mf = _join(m_l, mesh, bp, dims, 1).view(Bl, H, R)[..., 0]
+        for t, full in ((C, Cf), (n, nf), (m, mf)):
+            back = DTensor.from_local(full, mesh, bp, run_check=False)
+            t.to_local().copy_(_local(back, t.placements))
+    return DTensor.from_local(h, mesh, vp, run_check=False)
+
+
+def copied_slice(t, *narrows):
+    """A contiguous copy of the plain tensor ``t`` narrowed by each (dim,
+    start, size): the state slice the mLSTM's column plan hands the
+    kernel, which writes it in place."""
+    for dim, start, size in narrows:
+        t = t.narrow(dim, start, size)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _join(piece, mesh, bp, dims, dim: int):
+    """This rank's ``piece`` and the other model ranks' (over the mesh
+    dims ``dims``, in rank order) joined along ``dim``; the batch keeps
+    its placements ``bp``: one all-gather."""
+    from torch.distributed.tensor import DTensor, Shard
+    pl = tuple(Shard(dim) if i in dims else p for i, p in enumerate(bp))
+    return _local(DTensor.from_local(piece, mesh, pl, run_check=False), bp)
+
+
+class _GatherUnits(torch.autograd.Function):
+    """(B, L) on each of the ``n`` ranks of process group ``group`` ->
+    (B, n L), the ranks' in order: one all-gather; the backward takes
+    each rank's (B, L) of the summed gradient, one reduce-scatter. The
+    functional collectives themselves: a DTensor redistribution a step
+    would cost the sLSTM's loop several times their host time."""
+
+    @staticmethod
+    def forward(ctx, x, n: int, group: str):
+        ctx.n, ctx.group = n, group
+        c10d = torch.ops._c10d_functional
+        out = c10d.wait_tensor(c10d.all_gather_into_tensor(
+            x.contiguous(), n, group))
+        return out.view(n, *x.shape).movedim(0, 1).reshape(x.shape[0], -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        c10d = torch.ops._c10d_functional
+        B = grad.shape[0]
+        parts = grad.reshape(B, ctx.n, -1).movedim(1, 0).reshape(
+            ctx.n * B, -1)
+        return c10d.wait_tensor(c10d.reduce_scatter_tensor(
+            parts, "sum", ctx.n, ctx.group)), None, None
+
+
+def _slstm(fn: Callable, mesh, args: list):
+    """``call`` for the sLSTM recurrence (``xlstm.slstm_scan``: x, the
+    gate weight and bias, the recurrent weight, then the states c, n, m,
+    h): the plans of the module note."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    args = [S.as_replicated(t, mesh) for t in args]
+    x, w, b, rw, c = args[:5]
+    D = c.shape[1]
+    dh = rw.shape[1]
+    xp = S.logical_placements(x, "batch")
+    whole = [S.logical_placements(t, None) for t in (w, b, rw)]
+    up = S.logical_placements(c, "batch", "heads")
+    dims = _split_dims(up, 1)
+    if len(dims) == 1:
+        local, offset = compute_local_shape_and_global_offset(c.shape, mesh,
+                                                              up)
+        Dl, u0 = local[1], offset[1]
+        if all((g * D + u0) // (4 * dh) == (g * D + u0 + Dl - 1) // (4 * dh)
+               for g in range(4)):
+            yp = tuple(Shard(2) if i in dims else p
+                       for i, p in enumerate(xp))
+            group = mesh.get_group(dims[0]).group_name
+
+            def gather(hl):
+                """(B, Dl) of each rank -> the whole (B, D)."""
+                return _GatherUnits.apply(hl, D // Dl, group)
+            wl, bl, rwl = (_local(t, pl, _grad_placements(pl, yp))
+                           for t, pl in zip((w, b, rw), whole))
+            out = fn(_local(x, xp, _grad_placements(xp, yp)), wl, bl, rwl,
+                     *(_local(t, up) for t in args[4:]), units=(u0, Dl),
+                     gather=gather)
+            return (DTensor.from_local(out[0], mesh, yp, run_check=False),
+                    *(DTensor.from_local(t, mesh, up, run_check=False)
+                      for t in out[1:]))
+    return _run("slstm_scan", fn, mesh, args, {},
+                [xp, *whole] + [S.logical_placements(t, "batch")
+                                for t in args[4:]])
 
 
 def write_rows(dst, dim: int, index, src) -> None:

@@ -289,6 +289,81 @@ def splittable(x, dim: int, parts: int):
     return x.redistribute(x.device_mesh, pl)
 
 
+def batch_full(like, shape, fill: float, dtype=torch.float32):
+    """``torch.full(shape, fill)`` on ``like``'s device; beside a DTensor
+    ``like`` under rules, a DTensor split by batch (dim 0) as the rules
+    split it, each rank allocating only its own rows: a state a step
+    makes for itself (the recurrences' zero state)."""
+    if not is_dtensor(like):
+        return torch.full(shape, fill, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = like.device_mesh
+    spec = logical_to_pspec(("batch",), _current_rules() or {})
+    pl = placements(safe_spec(spec, shape, mesh_sizes(mesh)), mesh)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    return DTensor.from_local(
+        torch.full(local, fill, dtype=dtype, device=like.to_local().device),
+        mesh, pl, run_check=False)
+
+
+def part_products(x, w, parts: int) -> tuple:
+    """``(x @ w).chunk(parts, dim=-1)`` for a weight ``w`` (K, N). Where
+    ``w`` is a DTensor whose columns its mesh split does not divide into
+    the parts' own splits (the mLSTM's (D, 2E) up projection, 2E over 16
+    ranks: 8 hold the x branch's columns, 8 the gate's), the smaller of
+    the two is gathered: the product where it is smaller than the
+    weight (the chunk gathers it; a decode step's), else the weight, each
+    part then the product with its own (K, N / parts) block split again
+    as ``w`` is (a prompt's or a train step's), so that no part, nor its
+    weight gradient, is computed whole on every rank. XLA moves the JAX
+    package's product between the ranks at decode and splits it by
+    blocks at prefill and in training. A plain tensor is chunked as
+    ``x @ w``."""
+    if not is_dtensor(w) or \
+            x.numel() // x.shape[-1] * w.shape[-1] < w.numel():
+        return (x @ w).chunk(parts, dim=-1)
+    blocks = gather_last(w).view(w.shape[0], parts, -1).unbind(1)
+    return tuple(x @ b.redistribute(w.device_mesh, w.placements)
+                 for b in blocks)
+
+
+def idle_product(x, w):
+    """``x @ w`` for a weight ``w`` (K, N). Where ``x`` is a DTensor
+    whose batch (dim 0) the batch rule's mesh dims leave whole (a batch
+    of 1 on the 16-way data axis) and both are whole over those idle
+    dims of more than one rank, the contraction is split over them (each
+    rank its slice of K of both, no data moved) and the product is a
+    partial sum there, which the next layout reduces: XLA splits the
+    JAX package's mLSTM projections so at ``long_500k``. Anything else,
+    a plain tensor included, is ``x @ w``."""
+    rules = _current_rules()
+    if rules is None or not (is_dtensor(x) and is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    axes = rules.get("batch")
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    by_batch = logical_placements(x, "batch")
+    idle = [names.index(a) for a in axes if a in names
+            and mesh.mesh.shape[names.index(a)] > 1
+            and not isinstance(by_batch[names.index(a)], Shard)
+            and isinstance(x.placements[names.index(a)], Replicate)
+            and isinstance(w.placements[names.index(a)], Replicate)]
+    size = 1
+    for i in idle:
+        size *= mesh.mesh.shape[i]
+    if not idle or x.shape[-1] % size:
+        return x @ w
+    xp = tuple(Shard(x.ndim - 1) if i in idle else p
+               for i, p in enumerate(x.placements))
+    wp = tuple(Shard(0) if i in idle else p
+               for i, p in enumerate(w.placements))
+    return x.redistribute(mesh, xp) @ w.redistribute(mesh, wp)
+
+
 def foldable(x):
     """``x`` ready for a product that folds its leading dims into one (a
     (B, S, D) activation times a weight): a DTensor split on a dim

@@ -367,6 +367,23 @@ def _refuse(*args, **kwargs):
     raise AssertionError("a kernel wrapper was reached on meta")
 
 
+def test_count_by_op_sums_the_dot_flops():
+    """``Count(by_op=True)``: the dot flops by op and operand shapes, a
+    kernel call under its name, largest first, summing to the total."""
+    x, w = torch.randn(3, 4), torch.randn(4, 5)
+    args, _ = _kernel_args("mlstm_chunk", True)
+    with count.Count(by_op=True) as c:
+        x @ w
+        x @ w
+        ops.mlstm_chunk(*[a.clone() for a in args])
+    res = c.result()
+    by = res["dot_flops_by_op"]
+    assert [v for _, v in by] == sorted((v for _, v in by), reverse=True)
+    assert dict(by) == {"mm (3, 4) x (4, 5)": 2 * 2.0 * 3 * 4 * 5,
+                        "mlstm_chunk": ops.WORK["mlstm_chunk"](*args)[0]}
+    assert sum(v for _, v in by) == res["dot_flops"]
+
+
 # ---------------------------------------------------------------------------
 # the roofline at the H100 peaks
 # ---------------------------------------------------------------------------

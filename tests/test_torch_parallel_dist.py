@@ -9,7 +9,7 @@ the port's unsharded steps on the same numpy-seeded inputs and weights
 gloo case in one ``mp.spawn`` of 4 ranks: ``allgather_matmul``,
 ``reduce_scatter_grads`` and ``run_pipeline`` on 1-D meshes of the 4
 ranks (mirroring ``tests/test_parallel.py``), and the step builders on
-a 2 x 2 ("data", "model") mesh. The ranks meet through a ``file://``
+a 2 x 2 ("data", "model") mesh (a 1 x 4 one where ``MESHES`` says). The ranks meet through a ``file://``
 init method in the test's temporary directory, so two files' groups
 never share a port. Rank 0 writes the gathered results, which the tests
 below hold: the collectives and the pipeline at 1e-5 (as the JAX
@@ -18,9 +18,9 @@ the unsharded port step and the JAX step (the train step's parameters
 and moments against the unsharded port step, whose own parity with the
 JAX step, parameters included, ``tests/test_torch_train.py`` holds;
 8-bit moments within one quantisation level, their scales at 1e-4).
-Each rank also records the local shapes of its attention calls (the
-kernel dispatchers and plain versions wrapped in the worker), so that
-each case shows which of ``local_calls``' attention plans it took.
+Each rank also records the local shapes of its attention and mLSTM
+calls (the kernel dispatchers and plain versions wrapped in the worker),
+so that each case shows which of ``local_calls``' plans it took.
 """
 import dataclasses
 import os
@@ -53,7 +53,15 @@ MODEL_TOL = dict(atol=5e-5, rtol=5e-5)
 # at 6 heads and 3 KV heads splits the query heads and gives each rank
 # one KV head per query head; at 3 heads and 1 KV head, which the 2-way
 # model axis does not divide, it splits the query rows (and the output
-# projection takes each rank's own rows)
+# projection takes each rank's own rows). xLSTM at 1 head: the 2-way
+# model axis splits the mLSTM's value columns (each rank dv / 2 of the
+# head's, q, k and the gates gathered, the state joined back) and the
+# sLSTM's hidden units (h gathered at each step); at the reduced config's
+# 4 heads it splits the mLSTM by heads. xLSTM at 2 heads on a 1 x 4 mesh
+# (``MESHES``): each head's value columns over 2 of the 4 model ranks
+# (head 0 on ranks 0 and 1, head 1 on 2 and 3), so that a rank's head
+# and columns are both taken at an offset and C, n, m are joined across
+# heads
 TRAIN_CASES = {
     "smollm-135m": ("smollm-135m", {}),
     "deepseek-v3-671b": ("deepseek-v3-671b", {}),
@@ -63,6 +71,8 @@ TRAIN_CASES = {
                                 "d_model": 48}),
     "jamba-v0.1-52b": ("jamba-v0.1-52b", {}),
     "xlstm-125m": ("xlstm-125m", {}),
+    "xlstm-125m-1h": ("xlstm-125m", {"num_heads": 1}),
+    "xlstm-125m-2h": ("xlstm-125m", {"num_heads": 2}),
     "smollm-135m-fsdp-8bit": ("smollm-135m", {"d_model": 384, "fsdp": True,
                                               "opt_8bit_moments": True}),
     # recomputation on DTensors: the periods under the full configs'
@@ -97,14 +107,29 @@ CHUNK_CASES = {"data": ((4, 3, 5), ("S0", "R"), 0, 2),
                "both-axes": ((8, 3), ("S0", "S0"), 0, 2),
                "positions": ((3, 4, 6), ("S1", "R"), 1, 2),
                "uneven": ((8, 3), ("S0", "R"), 0, 4)}
-# Yi-9B reduced, by the fields replaced: 4 KV heads divide the 2-way
-# model axis (head-sharded cache); at 1 KV head the cache is
-# sequence-sharded, prefill splits the 4 query heads and decode joins the
-# two ranks' rows; at 3 heads and 1 KV head prefill splits the query rows
-SERVE_CASES = {4: {"num_kv_heads": 4}, 1: {"num_kv_heads": 1},
-               "3-heads-1kv": {"num_heads": 3, "num_kv_heads": 1,
-                               "d_model": 48}}
+# the serve cases: (arch, the reduced config's fields replaced). Yi-9B: 4
+# KV heads divide the 2-way model axis (head-sharded cache); at 1 KV head
+# the cache is sequence-sharded, prefill splits the 4 query heads and
+# decode joins the two ranks' rows; at 3 heads and 1 KV head prefill
+# splits the query rows. xLSTM at 1 head: the recurrences split over the
+# model axis, their states written back in place into the cache's own
+# layout (replicated over the model axis at 1 head); at 2 heads on the
+# 1 x 4 mesh, as the train case; at 1 head and a batch of 1
+# (``SERVE_BATCH``), which the 2-way data axis leaves whole, q, k and v's
+# projections also contract over the idle data axis
+# (``sharding.idle_product``)
+SERVE_CASES = {4: ("yi-9b", {"num_kv_heads": 4}),
+               1: ("yi-9b", {"num_kv_heads": 1}),
+               "3-heads-1kv": ("yi-9b", {"num_heads": 3, "num_kv_heads": 1,
+                                         "d_model": 48}),
+               "xlstm-1-head": ("xlstm-125m", {"num_heads": 1}),
+               "xlstm-2-heads": ("xlstm-125m", {"num_heads": 2}),
+               "xlstm-1-head-b1": ("xlstm-125m", {"num_heads": 1})}
 B, S, DECODES, T_MAX = 4, 8, 3, 32
+# the cases' (data, model) meshes over the 4 ranks: 2 x 2 unless named
+MESHES = {"xlstm-125m-2h": (1, 4), "xlstm-2-heads": (1, 4)}
+# the serve cases' batches: B unless named
+SERVE_BATCH = {"xlstm-1-head-b1": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +152,22 @@ def _ce_inputs():
     return logits, labels
 
 
+def _idle_inputs():
+    """A batch of 1 (which the 2-way data axis cannot split) and a weight
+    for ``sharding.idle_product``."""
+    rng = np.random.default_rng(5)
+    return (rng.standard_normal((1, 3, 8)).astype(np.float32),
+            rng.standard_normal((8, 6)).astype(np.float32))
+
+
+def _mesh_shape(case):
+    return MESHES.get(case, (2, 2))
+
+
+def _batch(case):
+    return SERVE_BATCH.get(case, B)
+
+
 def _train_config(module, case):
     return module.TrainConfig(microbatches=MICROBATCHES.get(case, 1))
 
@@ -139,8 +180,8 @@ def _tokens(seed, shape):
 def _serve_cfgs(case):
     from repro import configs as jconfigs
     from repro_torch import configs
-    return tuple(dataclasses.replace(c.reduced_config("yi-9b"),
-                                     **SERVE_CASES[case])
+    arch, fields = SERVE_CASES[case]
+    return tuple(dataclasses.replace(c.reduced_config(arch), **fields)
                  for c in (jconfigs, configs))
 
 
@@ -192,7 +233,7 @@ def _jax_serve(case, jp, toks):
     from repro.models import kvcache
     from repro.models.transformer import forward
     jcfg, _ = _serve_cfgs(case)
-    cache = kvcache.init_cache(jcfg, B, T_MAX)
+    cache = kvcache.init_cache(jcfg, len(toks), T_MAX)
     lg, cache, _ = forward(jp, jcfg, toks[:, :S], cache=cache,
                            cache_index=0, mode="prefill")
     out = [np.asarray(lg[:, -1])]
@@ -233,15 +274,16 @@ def _port_serve(p, cfg, toks, sharded=None):
     from repro_torch.models.kvcache import init_cache
     from repro_torch.parallel.sharding import distribute, full
     t = torch.from_numpy(toks)
+    batch = len(toks)
     if sharded is None:
-        cache = init_cache(cfg, B, T_MAX, "cpu")
+        cache = init_cache(cfg, batch, T_MAX, "cpu")
         out = [steps.serve_prefill(p, cfg, cache, t[:, :S])[0]]
         for i in range(DECODES):
             out.append(steps.serve_decode(p, cfg, cache,
                                           t[:, S + i:S + i + 1], S + i)[0])
         return torch.stack(out), cache
     pstep, dstep, c_sh, b_sh = sharded
-    cache = distribute(init_cache(cfg, B, T_MAX, "cpu"), c_sh)
+    cache = distribute(init_cache(cfg, batch, T_MAX, "cpu"), c_sh)
     out = [pstep(p, cache, distribute({"inputs": t[:, :S]}, b_sh))[0]]
     for i in range(DECODES):
         out.append(dstep(p, cache, distribute(
@@ -271,7 +313,7 @@ def subprocess_main(out_dir: str) -> None:
         jcfg, tcfg = _serve_cfgs(case)
         jparams[case] = init_params(jcfg, jax.random.PRNGKey(0))
         params[("serve", case)] = (_port_tree(jparams[case], tcfg),
-                                   _tokens(3, (B, S + DECODES)))
+                                   _tokens(3, (_batch(case), S + DECODES)))
     torch.save({"inputs": inp, "params": params}, out / "inputs.pt")
     ranks = mp.spawn(_worker, args=(WORLD, out_dir), nprocs=WORLD,
                      join=False)
@@ -305,24 +347,33 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
                             rank=rank, world_size=world)
     data = torch.load(out / "inputs.pt", weights_only=False)
     got = {"coll": _port_collectives(data["inputs"], rank)}
-    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    meshes = {shape: init_device_mesh("cpu", shape,
+                                      mesh_dim_names=("data", "model"))
+              for shape in {(2, 2), *MESHES.values()}}
+    mesh = meshes[(2, 2)]
     got["ce"] = {c: _sharded_ce(c, mesh) for c in CE_CASES}
     got["chunks"] = {c: _sharded_chunks(c, mesh) for c in CHUNK_CASES}
+    got["idle"] = _sharded_idle_product(mesh)
     calls = _record_attention_calls()
     picks = _record_label_picks()
+    idle = _record_idle_products()
     got["train"], got["serve"], got["calls"], got["picks"] = {}, {}, {}, {}
+    got["idle_calls"] = {}
     for c in TRAIN_CASES:
-        got["train"][c] = _sharded_train(c, mesh, *data["params"][c])
+        got["train"][c] = _sharded_train(c, meshes[_mesh_shape(c)],
+                                         *data["params"][c])
         got["calls"][c] = list(calls)
         got["picks"][c] = list(picks)
         calls.clear()
         picks.clear()
     for c in SERVE_CASES:
-        got["serve"][c] = _sharded_serve(c, mesh,
+        idle.clear()
+        got["serve"][c] = _sharded_serve(c, meshes[_mesh_shape(c)],
                                          *data["params"][("serve", c)])
         got["calls"][c] = list(calls)
+        got["idle_calls"][c] = list(idle)
         calls.clear()
-    # ranks 0 and 1: data 0, model 0 and 1
+    # ranks 0 and 1: model 0 and 1 (data 0 on the 2 x 2 mesh)
     if rank < 2:
         torch.save((got["calls"], got["picks"]), out / f"calls{rank}.pt")
     if rank == 0:
@@ -332,24 +383,47 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
 
 
 def _record_attention_calls():
-    """Wraps the attention dispatchers and plain versions that the built
-    steps reach (both routes) so that each call on this rank appends
-    (name, local q shape, local k shape, valid_len values, lse asked);
-    returns the list."""
+    """Wraps the attention and mLSTM dispatchers and plain versions that
+    the built steps reach (both routes) so that each call on this rank
+    appends (name, local q shape, local k shape, valid_len values, lse
+    asked), for the mLSTM (name, local q shape, local C shape, None,
+    False); returns the list."""
     from repro_torch.kernels import ops
     calls = []
 
     def recorded(name, fn):
         def run(q, k, v, *args, **kwargs):
+            if name == "mlstm_chunk":
+                calls.append((name, tuple(q.shape), tuple(args[2].shape),
+                              None, False))
+                return fn(q, k, v, *args, **kwargs)
             vl = args[0].tolist() if args else None
             calls.append((name, tuple(q.shape), tuple(k.shape), vl,
                           bool(kwargs.get("with_lse"))))
             return fn(q, k, v, *args, **kwargs)
         return run
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "mlstm_chunk"):
         setattr(ops, name, recorded(name, getattr(ops, name)))
         ops.PLAIN[name] = recorded(name, ops.PLAIN[name])
     return calls
+
+
+def _record_idle_products():
+    """Wraps the mLSTM's ``idle_product`` so that each call on this rank
+    appends whether its product came back a partial sum (contracted over
+    an idle mesh dim); returns the list."""
+    from torch.distributed.tensor import DTensor, Partial
+    from repro_torch.models import xlstm
+    split = []
+    inner = xlstm.idle_product
+
+    def recorded(x, w):
+        y = inner(x, w)
+        split.append(isinstance(y, DTensor) and any(
+            isinstance(p, Partial) for p in y.placements))
+        return y
+    xlstm.idle_product = recorded
+    return split
 
 
 def _record_label_picks():
@@ -439,6 +513,20 @@ def _sharded_chunks(case, mesh):
              tuple(p.to_local().shape)) for p in parts]
 
 
+def _sharded_idle_product(mesh):
+    """``sharding.idle_product`` of the idle inputs, x whole and the
+    weight split by columns over the model axis, under the standard
+    rules: (the full product, its placements)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.parallel import sharding as S
+    x, w = (torch.from_numpy(a) for a in _idle_inputs())
+    with S.sharding_rules(S.make_rules(), mesh):
+        y = S.idle_product(distribute_tensor(x, mesh, (Replicate(),) * 2),
+                           distribute_tensor(w, mesh, (Replicate(),
+                                                       Shard(1))))
+    return y.full_tensor(), tuple(y.placements)
+
+
 def _gather_rows(t, group):
     import torch.distributed as dist
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
@@ -498,18 +586,19 @@ def _sharded_serve(case, mesh, p, toks):
     from repro_torch.models.kvcache import init_cache
     from repro_torch.parallel.sharding import distribute
     _, tcfg = _serve_cfgs(case)
-    pre = ShapeConfig("prefill", "prefill", T_MAX, B)
-    dec = ShapeConfig("decode", "decode", T_MAX - 1, B)
+    batch = len(toks)
+    pre = ShapeConfig("prefill", "prefill", T_MAX, batch)
+    dec = ShapeConfig("decode", "decode", T_MAX - 1, batch)
     pstep, pargs, specs = steps.build_serve_step(tcfg, mesh, pre)
     dstep, _, _ = steps.build_serve_step(tcfg, mesh, dec)
     dp = distribute(p, steps.named_safe(mesh, specs["params"], pargs[0]))
-    cache = init_cache(tcfg, B, T_MAX, "cpu")
+    cache = init_cache(tcfg, batch, T_MAX, "cpu")
     c_sh = steps.named_safe(mesh, specs["cache"], cache)
     b_sh = steps.named_safe(mesh, specs["batch"],
                             {"inputs": torch.from_numpy(toks[:, :S])})
     logits, cache = _port_serve(dp, tcfg, toks, (pstep, dstep, c_sh, b_sh))
-    return logits, cache, [tuple(sh.spec) for sh in
-                           (c_sh[0]["k"], c_sh[0]["v"])]
+    return logits, cache, {name: tuple(sh.spec)
+                           for name, sh in c_sh[0].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -613,10 +702,43 @@ EXPECTED_CALLS = {
     "yi-9b-3h-rows": [("flash_attention", (2, 8, 3, 16), (2, 16, 1, 16),
                        None, None, False)] * 2,
 }
+# the mLSTM's (10 layers of the reduced config's 12): at 4 heads each
+# rank two heads whole (dk = dv = 32), at 1 head each rank half the
+# head's value columns (dk 128, dv 64 of 128), at 2 heads on the 1 x 4
+# mesh a quarter of E, half of its head's columns (dk 64, dv 32 of 64, the
+# whole batch of 4 a rank); train over 16 tokens, serve a prefill of S
+# then one step at a time
+_MLSTM = 10
+
+
+def _served(b, dk, dv):
+    return [("mlstm_chunk", (b, S, 1, dk), (b, 1, dk, dv), None, None,
+             False)] * _MLSTM + [("mlstm_chunk", (b, 1, 1, dk),
+                                  (b, 1, dk, dv), None, None, False)] * (
+        _MLSTM * DECODES)
+
+
+EXPECTED_CALLS.update({
+    "xlstm-125m": [("mlstm_chunk", (2, 16, 2, 32), (2, 2, 32, 32), None,
+                    None, False)] * _MLSTM,
+    "xlstm-125m-1h": [("mlstm_chunk", (2, 16, 1, 128), (2, 1, 128, 64),
+                       None, None, False)] * _MLSTM,
+    "xlstm-125m-2h": [("mlstm_chunk", (4, 16, 1, 64), (4, 1, 64, 32),
+                       None, None, False)] * _MLSTM,
+    "xlstm-1-head": _served(2, 128, 64),
+    "xlstm-2-heads": _served(4, 64, 32),
+    "xlstm-1-head-b1": _served(1, 128, 64),
+})
+# the mLSTM state's layout in the serve cases' caches: split by batch over
+# a data axis of 2 ranks (the 1 x 4 mesh's data axis of one rank named in
+# no spec, a batch of 1 whole), never over the model axis, on which
+# neither 1 head on 2 ranks nor 2 heads on 4 split
+XLSTM_CACHE_BATCH = {"xlstm-1-head": "data", "xlstm-2-heads": None,
+                     "xlstm-1-head-b1": None}
 
 
 def _assert_calls(got, case):
-    """Each rank's attention calls are the case's plan's."""
+    """Each rank's attention and mLSTM calls are the case's plan's."""
     want = EXPECTED_CALLS.get(case)
     if want is None:
         return
@@ -663,24 +785,39 @@ def test_batch_chunks_keep_the_rows_and_the_split(results, case):
         assert local[dim] == w.shape[dim] // split
 
 
+def test_idle_product_contracts_over_the_idle_data_axis(results):
+    """``sharding.idle_product`` at a batch of 1 on the 2 x 2 mesh: each
+    data rank contracts its half of K (the product a partial sum over the
+    data axis, split by columns over the model axis), and the reduced
+    product is ``x @ w``."""
+    from torch.distributed.tensor import Partial, Shard
+    _, got = results
+    y, pl = got["idle"]
+    x, w = _idle_inputs()
+    np.testing.assert_allclose(y.numpy(), x @ w, **COLL_TOL)
+    assert pl == (Partial(), Shard(2))
+
+
 def _assert_vocab_parallel(got, case):
     """Each cross entropy of the case's step ran on ranks 0 and 1 on its
     own half of the vocabulary and its own rows, and gathered nothing:
     the loss's and, with the MTP head, the MTP loss's, once a
     microbatch."""
     _, tcfg = _train_cfgs(case)
-    rows = B // 2 // MICROBATCHES.get(case, 1)
+    data, model = _mesh_shape(case)
+    rows = B // data // MICROBATCHES.get(case, 1)
     per_mb = 2 if tcfg.mtp_depth else 1
     for picks in got["picks"]:
         assert len(picks[case]) == per_mb * MICROBATCHES.get(case, 1)
         for shape, gathers in picks[case]:
-            assert shape[0] == rows and shape[-1] == tcfg.vocab_size // 2
+            assert shape[0] == rows and \
+                shape[-1] == tcfg.vocab_size // model
             assert gathers == [], (case, gathers)
 
 
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_built_train_step_matches_unsharded_and_jax(results, case):
-    """build_train_step on the 2 x 2 mesh: metrics against the unsharded
+    """build_train_step on the case's mesh: metrics against the unsharded
     port step and the JAX step, new parameters and optimizer state
     against the unsharded port step (``TRAIN_CASES`` says what each case
     goes through); the attention split each rank took
@@ -710,18 +847,28 @@ def test_built_train_step_matches_unsharded_and_jax(results, case):
 
 @pytest.mark.parametrize("case", list(SERVE_CASES))
 def test_built_serve_step_matches_unsharded_and_jax(results, case):
-    """build_serve_step on the 2 x 2 mesh: prefill and three decode
+    """build_serve_step on the case's mesh: prefill and three decode
     steps, the cache written in place, head-sharded (4 KV heads) or
-    sequence-sharded (1 KV head); last-position logits against the
-    unsharded port steps and the JAX forward, the cache against the
-    unsharded port's; the attention split each rank took
-    (``EXPECTED_CALLS``)."""
+    sequence-sharded (1 KV head), or xLSTM's recurrent states;
+    last-position logits against the unsharded port steps and the JAX
+    forward, the cache against the unsharded port's; the attention or
+    mLSTM split each rank took (``EXPECTED_CALLS``); at a batch of 1,
+    q, k and v's projections contracted over the idle data axis."""
     ref, got = results
     _assert_calls(got, case)
-    logits, cache, kspecs = got["serve"][case]
-    want_specs = [("data", None, "model", None)] * 2 if case == 4 \
-        else [("data", "model", None, None)] * 2
-    assert kspecs == want_specs
+    logits, cache, specs = got["serve"][case]
+    if SERVE_CASES[case][0] == "xlstm-125m":
+        b = XLSTM_CACHE_BATCH[case]
+        assert (specs["C"], specs["n"], specs["m"]) == (
+            (b, None, None, None), (b, None, None), (b, None))
+        # 3 products a layer and call: prefill and each decode step
+        idle = got["idle_calls"][case]
+        assert len(idle) == 3 * _MLSTM * (1 + DECODES)
+        assert all(idle) == (_batch(case) == 1) and any(idle) == all(idle)
+    else:
+        want_specs = [("data", None, "model", None)] * 2 if case == 4 \
+            else [("data", "model", None, None)] * 2
+        assert [specs["k"], specs["v"]] == want_specs
     ul, uc = ref["port_serve"][case]
     torch.testing.assert_close(logits, ul, **MODEL_TOL)
     np.testing.assert_allclose(logits.numpy(), ref["serve"][case],
